@@ -72,6 +72,10 @@ class OccupancyGridBuilder:
         template pixels; morphology at cell resolution).
       laserscan: must be False (or None with a non-laserscan calibration)
         in this slice.
+      label_scale: take the segmap at 1/label_scale of the calibrated
+        input resolution (a quarter-resolution head's labels).  Only with
+        ``interpolation="native"``: the cell-centre warp reads the small
+        map directly, bit-identical to nearest-lifting it first.
       device: where the plan lives and the grid is built.
     """
 
@@ -81,9 +85,15 @@ class OccupancyGridBuilder:
                  mode: str = "multiclass",
                  interpolation: str = "cv2_linear",
                  laserscan: bool | None = None,
+                 label_scale: int = 1,
                  device="cuda"):
         if mode not in ("multiclass", "binary"):
             raise ValueError(f"unknown mode {mode!r}")
+        if label_scale != 1 and interpolation != "native":
+            raise ValueError(
+                "label_scale > 1 requires interpolation='native' (the "
+                "parity path warps at template resolution; lift the "
+                "labels to input res instead)")
         laserscan = cal.laserscan if laserscan is None else laserscan
         if laserscan:
             raise NotImplementedError(
@@ -94,22 +104,26 @@ class OccupancyGridBuilder:
         self.mode = mode
         self.device = torch.device(device)
         self.geom = g = template_geometry(cal, grid)
-        self.segmap_shape = (cal.input_height, cal.input_width)
+        full_shape = (cal.input_height, cal.input_width)
+        self.segmap_shape = (full_shape[0] // label_scale,
+                             full_shape[1] // label_scale)
         self.interpolation = interpolation
+        self.label_scale = label_scale
 
         if interpolation == "native":
             taps = warp.cell_center_taps(
                 cal.matrix_np(),
-                src_shape=self.segmap_shape,
+                src_shape=full_shape,
                 tpl_shape=(g.tpl_h, g.tpl_w),
                 cells_shape=(g.cells_h, g.cells_w),
                 dst_offset=g.coord_offset,
                 valid_rect=g.valid_rect,
+                src_scale=label_scale,
             )
         else:
             taps = warp.perspective_taps(
                 cal.matrix_np(),
-                src_shape=self.segmap_shape,
+                src_shape=full_shape,
                 dst_shape=(g.tpl_h, g.tpl_w),
                 interpolation=interpolation,
                 dst_offset=g.coord_offset,

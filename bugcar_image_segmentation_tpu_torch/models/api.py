@@ -2,34 +2,63 @@
 
 Port of ``bugcar_image_segmentation_tpu/models/api.py`` (``Engine`` and
 ``build_engine``; the reference's ``InferenceModel``/``ENET``, models.py:
-8-136) for the ENet executors of this slice:
+8-136) for the models of the ported slices:
 
 - ``"enet"``: the :class:`~.enet.ENet` module, plain PyTorch ops;
 - ``"enet_fused"``: the same parameters with the 16 trunk bottlenecks as
-  hand-written CUDA kernels (:class:`~.enet_fused.FusedENet`).
+  hand-written CUDA kernels (:class:`~.enet_fused.FusedENet`);
+- ``"segformer[_bN][_q]"``: :class:`~.segformer.SegFormer` B0 (default)
+  to B3, attention through the hand-written CUDA kernel; ``_q`` keeps the
+  head at 1/4 resolution (argmax there, labels nearest-lifted; see
+  :attr:`Engine.label_scale`).  ``_int8`` and ``_hc`` are not ported.
 
 An engine runs ``preprocess → backbone → argmax → 3-class remap`` on its
 device.  Weights come as a Flax-layout numpy tree (``{"params",
-"batch_stats"}``, bridged by ``convert/flax_enet.py``), as a port
-``state_dict``, or — absent both — from ``seed``.  The parameters live in
-float32; BatchNorm is folded in f32 and the module is then cast to the
-config's compute dtype.
+"batch_stats"}``, bridged by ``convert/``), as a port ``state_dict``, or —
+absent both — from ``seed``.  Parameters are loaded in float32; ENet folds
+BatchNorm in f32 and is then cast to the config's compute dtype, SegFormer
+casts its Dense and conv weights and keeps its norms in f32.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Mapping, Optional
+from typing import Callable, Mapping, Optional, Tuple
 
 import torch
 
 from ..configs import ModelConfig
 from ..convert.flax_enet import enet_state_dict
+from ..convert.flax_segformer import (random_segformer_variables,
+                                      segformer_state_dict)
+from ..ops.resize import upsample_nearest_int
 from . import preprocess as pre
 from . import remap
 from .enet import ENet
 from .enet_fused import FusedENet
+from .segformer import SEGFORMER_PRESETS, SegFormer
 
-EXECUTORS = ("enet", "enet_fused")
+EXECUTORS = ("enet", "enet_fused")     # the ENet engines
+
+
+def segformer_variant(name: str) -> Tuple[str, bool]:
+    """``"segformer[_size][_q]"`` → (size, quarter head); the JAX
+    package's ``_int8`` and ``_hc`` raise ``NotImplementedError``."""
+    tokens = name.split("_")[1:]
+    for flag in ("int8", "hc"):
+        if flag in tokens:
+            raise NotImplementedError(
+                f"SegFormer variant {name!r}: _{flag} is not ported yet "
+                f"(ROADMAP.md Queue 1 item 11)")
+    rest = [t for t in tokens if t != "q"]
+    if len(rest) > 1 or (rest and rest[0] not in SEGFORMER_PRESETS):
+        raise ValueError(
+            f"unknown SegFormer variant {name!r}; grammar is "
+            f"segformer[_size][_q] with size in {sorted(SEGFORMER_PRESETS)}")
+    return (rest[0] if rest else "b0"), "q" in tokens
+
+
+def _is_segformer(name: str) -> bool:
+    return name == "segformer" or name.startswith("segformer_")
 
 
 def frames_to_device(frames_bgr, device: torch.device) -> torch.Tensor:
@@ -44,21 +73,30 @@ class Engine:
     """A segmentation backbone behind a frame → class-map API.
 
     Args:
-      name: "enet" or "enet_fused".
+      name: "enet", "enet_fused" or "segformer[_bN][_q]".
       cfg: model geometry, normalisation constants and compute dtype.
       variables: a Flax-layout numpy variable tree, or a port state dict;
         None initialises from ``seed``.
       device: where the model runs ("cuda" unless a caller asks for CPU).
-      seed: the ``torch.Generator`` seed of a self-initialised engine.
+      seed: the seed of a self-initialised engine.
+
+    ``label_scale``: the head emits labels at 1/label_scale of the input
+    resolution (4 for SegFormer ``_q``); :meth:`segment` lifts them back,
+    :meth:`segment_head` does not.
     """
 
     def __init__(self, name: str, cfg: ModelConfig,
                  variables: Optional[Mapping] = None,
                  device="cuda", seed: int = 0):
-        if name not in EXECUTORS:
+        self.size: Optional[str] = None
+        self.label_scale = 1
+        if _is_segformer(name):
+            self.size, quarter = segformer_variant(name)
+            self.label_scale = 4 if quarter else 1
+        elif name not in EXECUTORS:
             raise NotImplementedError(
-                f"model {name!r} is not ported yet; this slice has "
-                f"{EXECUTORS}")
+                f"model {name!r} is not ported yet; the port has "
+                f"{EXECUTORS} and segformer[_b0|_b1|_b2|_b3][_q]")
         self.name = name
         self.cfg = cfg
         self.device = torch.device(device)
@@ -70,6 +108,9 @@ class Engine:
     def load_variables(self, variables: Optional[Mapping]) -> None:
         """Swap in weights: a Flax-layout tree, a port state dict, or None
         (random from the engine's seed)."""
+        if self.size is not None:
+            self._load_segformer(variables)
+            return
         enet = ENet(self.cfg.num_classes)
         if variables is None:
             enet.reset_parameters(torch.Generator().manual_seed(self.seed))
@@ -86,6 +127,20 @@ class Engine:
         self.module = enet
         self.forward_fn = forward
 
+    def _load_segformer(self, variables: Optional[Mapping]) -> None:
+        model = SegFormer.preset(
+            self.size, num_classes=self.cfg.num_classes,
+            head_upsample="quarter" if self.label_scale == 4 else "full")
+        if variables is None:
+            variables = random_segformer_variables(
+                self.seed, self.size, self.cfg.num_classes)
+        sd = (segformer_state_dict(variables) if "params" in variables
+              else variables)
+        model.load_state_dict(sd)
+        self.module = model.to(self.device).eval().to_compute_dtype(
+            self.dtype)
+        self.forward_fn = self.module
+
     # -- the device program --------------------------------------------------
 
     @torch.no_grad()
@@ -95,16 +150,29 @@ class Engine:
         return self.forward_fn(x)
 
     @torch.no_grad()
-    def segment(self, frames: torch.Tensor, mode: str = "multiclass"
-                ) -> torch.Tensor:
+    def segment_head(self, frames: torch.Tensor, mode: str = "multiclass"
+                     ) -> torch.Tensor:
         """(N, H, W, 3) uint8 on the device → (N, h, w) uint8 class maps
-        (3-class drivability, or the binary road mask)."""
+        (3-class drivability, or the binary road mask) at the head's
+        resolution, 1/label_scale of the input's."""
         logits = self.forward(frames)
         if mode == "multiclass":
             return remap.logits_to_drivability(logits, self.remap_table)
         if mode == "binary":
             return remap.logits_to_binary_road(logits)
         raise ValueError(f"unknown mode {mode!r}")
+
+    def to_input_res(self, labels: torch.Tensor) -> torch.Tensor:
+        """Nearest-lift a head-resolution label map to the input
+        resolution (identity when ``label_scale`` is 1)."""
+        return upsample_nearest_int(labels, self.label_scale)
+
+    @torch.no_grad()
+    def segment(self, frames: torch.Tensor, mode: str = "multiclass"
+                ) -> torch.Tensor:
+        """(N, H, W, 3) uint8 on the device → (N, h, w) uint8 class maps
+        at the model's input resolution."""
+        return self.to_input_res(self.segment_head(frames, mode))
 
     # -- public API (reference models.py:42/70 equivalents) ------------------
 
@@ -134,11 +202,17 @@ def build_engine(name: str = "enet",
                  cfg: Optional[ModelConfig] = None,
                  variables: Optional[Mapping] = None,
                  device="cuda", seed: int = 0) -> Engine:
-    """Engine by name: ``"enet"`` or ``"enet_fused"`` (the others of the
-    JAX package's zoo come with later slices)."""
+    """Engine by name: ``"enet"``, ``"enet_fused"`` or
+    ``"segformer[_b0|_b1|_b2|_b3][_q]"`` (the others of the JAX package's
+    zoo come with later slices).  SegFormer defaults to 1024x1024, as the
+    JAX package's."""
     name = name.lower()
-    cfg = cfg or ModelConfig(name=name)
+    if cfg is None:
+        cfg = (ModelConfig(name=name, input_width=1024, input_height=1024,
+                           num_classes=15) if _is_segformer(name)
+               else ModelConfig(name=name))
     return Engine(name, cfg, variables=variables, device=device, seed=seed)
 
 
-__all__ = ["Engine", "build_engine", "frames_to_device", "EXECUTORS"]
+__all__ = ["Engine", "build_engine", "frames_to_device", "segformer_variant",
+           "EXECUTORS"]

@@ -7,7 +7,8 @@ the counts to 0 (:func:`reset_launches`) and reads them afterwards to show
 that a path went through the kernels.
 """
 
-LAUNCHES = {"fused_bottleneck": 0}
+LAUNCHES = {"fused_bottleneck": 0, "flash_attention": 0,
+            "flash_attention_t": 0}
 
 
 def reset_launches() -> None:

@@ -100,6 +100,10 @@ def library() -> ctypes.CDLL:
         lib.bugcar_fused_bottleneck.restype = _I
         lib.bugcar_fused_bottleneck_smem_bytes.argtypes = [_I, _I]
         lib.bugcar_fused_bottleneck_smem_bytes.restype = _I
+        for name in ("bugcar_flash_attention", "bugcar_flash_attention_t"):
+            fn = getattr(lib, name)
+            fn.argtypes = [_P] * 4 + [_I] * 4 + [ctypes.c_float, _I, _P]
+            fn.restype = _I
         lib.bugcar_cuda_error_string.argtypes = [_I]
         lib.bugcar_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -8,6 +8,8 @@ value (``F.interpolate`` rounds its source coordinates differently):
   (reference bev.py:139-141, 209-212 — the template→cell binning step).
 - ``resize_bilinear``: half-pixel-centre bilinear with replicated edges
   (reference models.py:87, 129 — camera frame → model input).
+- ``upsample_bilinear``: ``jax.image.resize(method="bilinear")`` for
+  upsampling (the SegFormer head), rounding where JAX rounds.
 - ``upsample_nearest_int``: integer-factor pixel replication.
 
 Index plans are computed on the host once per (src, dst) shape pair and
@@ -59,21 +61,47 @@ def resize_nearest(img: torch.Tensor, dst_hw: Tuple[int, int]) -> torch.Tensor:
     return img.index_select(-2, ys).index_select(-1, xs)
 
 
+def _lerp_axis(x: torch.Tensor, dim: int, dst: int) -> torch.Tensor:
+    """Half-pixel-centre bilinear resampling of one axis, in f32."""
+    i0, i1, frac = _on_device("linear", x.shape[dim], dst, x.device)
+    shape = [1] * x.dim()
+    shape[dim] = dst
+    frac = frac.view(shape)
+    lo = x.index_select(dim, i0).float()
+    hi = x.index_select(dim, i1).float()
+    return lo * (1.0 - frac) + hi * frac
+
+
 def resize_bilinear(img: torch.Tensor, dst_hw: Tuple[int, int]
                     ) -> torch.Tensor:
     """Half-pixel-centre bilinear resize of the trailing (H, W) axes, f32."""
-    dh, dw = dst_hw
-    sh, sw = img.shape[-2], img.shape[-1]
-    iy0, iy1, fy = _on_device("linear", sh, dh, img.device)
-    ix0, ix1, fx = _on_device("linear", sw, dw, img.device)
-    fy = fy[:, None]
-    x = img.float()
-    top = x.index_select(-2, iy0)
-    bot = x.index_select(-2, iy1)
-    row = top * (1.0 - fy) + bot * fy
-    left = row.index_select(-1, ix0)
-    right = row.index_select(-1, ix1)
-    return left * (1.0 - fx) + right * fx
+    return _lerp_axis(_lerp_axis(img, -2, dst_hw[0]), -1, dst_hw[1])
+
+
+def upsample_bilinear(x: torch.Tensor, dst_hw: Tuple[int, int],
+                      axes: Tuple[int, int] = (-2, -1)) -> torch.Tensor:
+    """``jax.image.resize(..., method="bilinear")`` of the ``axes`` (H, W)
+    to a size no smaller, value for value.
+
+    Upsampling needs no antialiasing, and the edge renormalisation of
+    JAX's weights reduces to clamping the source index, so each axis is
+    :func:`resize_bilinear`'s lerp.  JAX contracts one axis at a time in
+    the input's dtype (an einsum over two weight matrices, in the order
+    of fewer multiplications, H first on a tie), so the result is rounded
+    to ``x.dtype`` after each axis in that order; in float32 that is
+    ``resize_bilinear`` up to the last bit.
+    """
+    ah, aw = (a % x.dim() for a in axes)
+    (sh, sw), (dh, dw) = (x.shape[ah], x.shape[aw]), dst_hw
+    if dh < sh or dw < sw:
+        raise ValueError(f"upsample_bilinear: {(sh, sw)} -> {(dh, dw)} "
+                         f"shrinks an axis")
+    h_first = dh * sh * sw + dh * dw * sw <= sh * dw * sw + dh * dw * sh
+    for dim, dst in (((ah, dh), (aw, dw)) if h_first
+                     else ((aw, dw), (ah, dh))):
+        if x.shape[dim] != dst:
+            x = _lerp_axis(x, dim, dst).to(x.dtype)
+    return x
 
 
 def upsample_nearest_int(x: torch.Tensor, factor: int) -> torch.Tensor:
@@ -88,4 +116,5 @@ def upsample_nearest_int(x: torch.Tensor, factor: int) -> torch.Tensor:
     return y.reshape(x.shape[:-2] + (h * factor, w * factor))
 
 
-__all__ = ["resize_nearest", "resize_bilinear", "upsample_nearest_int"]
+__all__ = ["resize_nearest", "resize_bilinear", "upsample_bilinear",
+           "upsample_nearest_int"]

@@ -84,8 +84,13 @@ class Pipeline:
         self.engine = engine
         self.mode = mode
         self.device = engine.device
+        # A quarter-resolution head and the native grid compose: the
+        # cell-centre warp samples the head's small label map directly
+        # (grid.py ``label_scale``); other modes take the lifted map.
         self.builder = OccupancyGridBuilder(
             cal, grid_cfg, mode=mode, interpolation=interpolation,
+            label_scale=(engine.label_scale if interpolation == "native"
+                         else 1),
             device=self.device)
         self.default_depth = 2
 
@@ -102,8 +107,10 @@ class Pipeline:
         if frames.shape[0] > CHUNK:
             raise ValueError(f"a chunk holds at most {CHUNK} frames, got "
                              f"{frames.shape[0]}")
-        segs = self.engine.segment(frames, self.mode)
-        return self.builder.build(segs), segs
+        heads = self.engine.segment_head(frames, self.mode)
+        segs = self.engine.to_input_res(heads)
+        src = heads if self.builder.label_scale > 1 else segs
+        return self.builder.build(src), segs
 
     @torch.no_grad()
     def run_batch(self, frames) -> torch.Tensor:

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's main path on one NVIDIA GPU.
+"""Smoke run of the PyTorch port's paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -8,13 +8,15 @@ nvidia-smi.  It imports only ``bugcar_image_segmentation_tpu_torch`` (no
 JAX, no Flax, no cv2, no msgpack) and runs, printing one JSON line per
 phase with its elapsed seconds:
 
-1. ``env``    — the card, its power limit (nvidia-smi), torch / CUDA versions.
-2. ``build``  — nvcc builds ``csrc/*.cu`` into ``build/kernels/``.
-3. ``kernels``— ``fused_bottleneck`` on every trunk block (all kinds and
-   dilations) at the main path's shape (N = 1 and 4, 32x64x128, mid 32),
-   on the real trunk activations of a seeded ENet, held against its plain
-   PyTorch version in bfloat16 and in float32 (TF32 off), and timed with
-   CUDA events.
+1. ``env``    — the card, its power limit and top SM clock (nvidia-smi),
+   torch / CUDA versions.
+2. ``build``  — one nvcc call builds every ``csrc/*.cu`` into
+   ``build/kernels/``.
+3. ``kernels``— ``fused_bottleneck`` on every ENet trunk block (all kinds
+   and dilations) at the ENet path's shape (N = 1 and 4, 32x64x128, mid
+   32), on the real trunk activations of a seeded ENet, held against its
+   plain PyTorch version in bfloat16 and in float32 (TF32 off), and timed
+   with CUDA events.
 4. ``path``   — ``build_engine("enet_fused")`` with seeded weights (a
    Flax-layout numpy tree through the weight bridge) and ``Pipeline`` at
    ENet's full width (512x256, 15 classes) on synthetic 640x480 frames:
@@ -22,6 +24,21 @@ phase with its elapsed seconds:
    with the kernel's launch count read around exactly that run; grids
    checked for shape, dtype and values, and held against the plain
    ``"enet"`` engine on the card and a float32 CPU run of the port.
+5. ``attention_kernels`` — ``flash_attention`` and ``flash_attention_t``
+   at SegFormer-B0's four stage shapes at 1024x1024 (d 32, Nkv 1024 after
+   the spatial reduction), one d = 64 shape (B1-B3) and one Nkv = 4096
+   shape, each held against ``attention_reference`` in bfloat16 and in
+   float32 (TF32 off), and timed with CUDA events beside the plain version
+   and ``torch.nn.functional.scaled_dot_product_attention`` (a yardstick,
+   never on the path).
+6. ``segformer_path`` — ``build_engine("segformer_b0")`` (MiT-B0 at
+   1024x1024, 15 classes, bf16, seeded weights) and ``Pipeline``:
+   ``pipe(frame)``, ``pipe.stream(frames, depth=2)``, a 4-frame batch, and
+   ``segformer_b0_q`` through ``interpolation="native"``, with the
+   attention launch counts read around exactly that run (8 per backbone
+   batch); grids checked, and held against the same weights with the
+   plain attention (``xla_attention``) on the card and against a float32
+   CPU run of the port; the engines take turns for the speed numbers.
 
 Then it prints the nvidia-smi name/power-limit line, a ``{"kernels": ...}``
 line, and last ``{"ok": true, "device": {...}}``.  Any failed check exits
@@ -44,17 +61,32 @@ STREAM_FRAMES = 16
 SPEED_ROUNDS = 8           # turns per engine in the speed measurement
 MEM_RATE = 3.35e12         # H100 SXM HBM3, bytes/s
 PEAK = {"bfloat16": 989e12, "float32": 67e12}   # dense FLOP/s by input type
+SFU_PER_SM_CLK = 16        # exp (MUFU.EX2) per SM per clock
+SMS = 132                  # H100 SXM
 # kernel vs plain version, |got - ref| <= atol + rtol * |ref|:
 TOL = {"float32": (2e-4, 2e-4),      # the JAX package's f32 budget
        "bfloat16": (2 ** -6, 2 ** -5)}  # a few bf16 ulps: rounding points
+# flash attention vs attention_reference: float32 2e-5 (the JAX package's
+# own attention tolerance); bfloat16 one ulp of the output (both compute in
+# f32 from the same operands and round once).
+ATTN_TOL = {"float32": (2e-5, 0.0), "bfloat16": (1e-5, 2 ** -7)}
 # Share of equal labels / grid cells, fused vs plain engine on the card in
 # bf16: the two round at different points (the kernel keeps f32 between
 # its stages), so argmax near-ties of the seeded random weights flip; a
-# CPU rehearsal of this run measured 0.9936 labels / 0.9949 cells.
+# CPU rehearsal of this run measured 0.9936 labels / 0.9949 cells.  The
+# same budget holds SegFormer's kernel engine against its plain attention
+# (a card test at 512x512 passes it).
 AGREE_BF16 = 0.98
 # The same in f32 (TF32 off), the card's fused engine vs the CPU's plain one.
 AGREE_F32 = 0.999
 F32_LOGIT_ATOL = 1e-3
+# (B, H, Nq, Nkv, d): SegFormer-B0's attention at 1024x1024, stage by
+# stage (the path's shapes), then a B1-B3 head dim and the JAX kernel's
+# blocked regime (Nkv > 2048).
+ATTN_STAGES = [(1, 1, 65536, 1024, 32), (1, 2, 16384, 1024, 32),
+               (1, 5, 4096, 1024, 32), (1, 8, 1024, 1024, 32)]
+ATTN_EXTRA = [(1, 2, 16384, 1024, 64), (1, 1, 4096, 4096, 32)]
+SEGFORMER_HW = (1024, 1024)
 
 _T0 = time.perf_counter()
 
@@ -86,6 +118,12 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def quartiles(values) -> dict:
+    import numpy as np
+    return dict(zip(("q25", "median", "q75"),
+                    np.percentile(values, [25, 50, 75]).tolist()))
+
+
 def block_bound(n: int, h: int, w: int, kind: str, dtype: str):
     """(least ms, "bytes" | "operations") of one bottleneck launch: x read
     and out written once, f32 weights read once; useful FLOPs at the peak
@@ -101,20 +139,30 @@ def block_bound(n: int, h: int, w: int, kind: str, dtype: str):
                                        else "operations")
 
 
-def main() -> int:
-    faulthandler.dump_traceback_later(DEADLINE_S, exit=True)
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this script runs on the GPU host",
-              file=sys.stderr)
-        return 2
-    try:
-        import bugcar_image_segmentation_tpu_torch as port
-    except ImportError as exc:
-        print(f"chip_smoke: the port package is not importable ({exc}); "
-              f"run from the root of a checkout", file=sys.stderr)
-        return 2
+def attention_bound(shape, dtype: str, clock_hz: float) -> dict:
+    """The least time of one attention launch: the larger of the bytes
+    (q, k, v read once, out written once) over the memory rate, the two
+    products' FLOPs (4·B·H·Nq·Nkv·d) over the tensor rate of the input
+    type, and the B·H·Nq·Nkv exps over the SFU rate (16 per SM per clock
+    at ``clock_hz``)."""
+    b, h, nq, nkv, d = shape
+    item = 2 if dtype == "bfloat16" else 4
+    t = {"bytes": item * b * h * d * (2 * nq + 2 * nkv) / MEM_RATE,
+         "flops": 4 * b * h * nq * nkv * d / PEAK[dtype],
+         "exp": b * h * nq * nkv / (SFU_PER_SM_CLK * SMS * clock_hz)}
+    worst = max(t, key=t.get)
+    return {"bound_ms": 1e3 * t[worst],
+            "bound_by": "bytes" if worst == "bytes" else "operations",
+            "set_by": worst, **{f"{k}_ms": 1e3 * v for k, v in t.items()}}
+
+
+def enet_phases(lib, smi: str, dev) -> dict:
+    """ENet's phases (``kernels`` and ``path``); returns the kernel line's
+    ``fused_bottleneck`` entry."""
     import numpy as np
+    import torch
+
+    import bugcar_image_segmentation_tpu_torch as port
     from bugcar_image_segmentation_tpu_torch import synthetic
     from bugcar_image_segmentation_tpu_torch.calibration import \
         toy_calibration
@@ -122,33 +170,8 @@ def main() -> int:
         random_enet_variables
     from bugcar_image_segmentation_tpu_torch.models import preprocess as pre
     from bugcar_image_segmentation_tpu_torch.ops import cuda as kcuda
-    from bugcar_image_segmentation_tpu_torch.ops.cuda import build as kbuild
     from bugcar_image_segmentation_tpu_torch.ops.cuda.bottleneck import (
         fused_bottleneck_ref, launch_args)
-
-    # float32 on the card means float32: cuDNN convs default to TF32.
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
-
-    # -- env -----------------------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
-    dev = torch.device("cuda")
-    emit("env", nvidia_smi=smi, torch=torch.__version__,
-         cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
-         count=torch.cuda.device_count(), cudnn_allow_tf32=False,
-         float32_matmul_precision="highest")
-
-    # -- build ---------------------------------------------------------------
-    t = time.perf_counter()
-    lib = kbuild.library()
-    ptxas = [ln.strip() for ln in kbuild.build_log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    emit("build", seconds=round(time.perf_counter() - t, 3),
-         nvcc_seconds=kbuild.build_seconds, ptxas=ptxas)
 
     # -- weights, frames, engines --------------------------------------------
     t = time.perf_counter()
@@ -372,10 +395,9 @@ def main() -> int:
          f32_card_vs_cpu_label_agree=f32_label_agree, speed=speed,
          nvidia_smi=smi)
 
-    # -- result --------------------------------------------------------------
     main_recs = [r for r in per_block
                  if r["dtype"] == "bfloat16" and r["n"] == 1]
-    kernels = [{
+    entry = {
         "name": "fused_bottleneck",
         "route": "cuda",
         "source": "bugcar_image_segmentation_tpu_torch/csrc/"
@@ -394,8 +416,305 @@ def main() -> int:
         "bound_by": ("bytes" if by_bytes >= trunk_bound_ms / 2
                      else "operations"),
         "library_ms": None,
-    }]
+    }
     assert len(main_recs) == len(blocks)
+    return entry
+
+
+def attention_phase(lib, clock_hz: float) -> dict:
+    """Both attention kernels at the smoke's shapes against the plain
+    version, bf16 and f32, timed beside the plain version and SDPA; the
+    records by (kernel name, shape) and the worst error per kernel."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from bugcar_image_segmentation_tpu_torch.ops.cuda import attention as att
+
+    t = time.perf_counter()
+    records = {}
+    worst = {"flash_attention": 0.0, "flash_attention_t": 0.0}
+    for shape in ATTN_STAGES + ATTN_EXTRA:
+        b, h, nq, nkv, d = shape
+        rng = np.random.default_rng(SEED)
+        base = [torch.as_tensor(rng.standard_normal((b, h, n, d)).astype(
+            np.float32), device="cuda") for n in (nq, nkv, nkv)]
+        for name in ("flash_attention", "flash_attention_t"):
+            fn = getattr(att, name)
+            plain = (att.attention_reference_t if name == "flash_attention_t"
+                     else att.attention_reference)
+            rec = {"kernel": name, "shape": list(shape)}
+            for dt in ("float32", "bfloat16"):
+                q, k, v = (x.to(getattr(torch, dt)) for x in base)
+                if name == "flash_attention_t":
+                    q, k, v = (x.transpose(-1, -2).contiguous()
+                               for x in (q, k, v))
+                got = fn(q, k, v)
+                ref = plain(q, k, v)
+                torch.cuda.synchronize()
+                atol, rtol = ATTN_TOL[dt]
+                diff = (got.float() - ref.float()).abs()
+                err = float(diff.max())
+                if not bool(torch.isfinite(got.float()).all()):
+                    fail(f"{name} {shape} {dt}: output not finite")
+                if bool((diff > atol + rtol * ref.float().abs()).any()):
+                    fail(f"{name} {shape} {dt}: max |err| {err} exceeds "
+                         f"{atol} + {rtol}*|ref|")
+                worst[name] = max(worst[name], err)
+                rec[f"max_abs_err_{dt}"] = err
+                if dt != "bfloat16":
+                    continue
+                out = torch.empty_like(q)
+                raw = att.launch_args(name, q, k, v, out)
+                kfn = getattr(lib, f"bugcar_{name}")
+                iters = max(5, min(200, int(4e9 / (b * h * nq * nkv))))
+                # device time: bare launches, no Python checks
+                rec["ms"] = cuda_ms(lambda: kfn(*raw), iters)
+                rec["wrapper_ms"] = cuda_ms(lambda: fn(q, k, v), iters)
+                rec["plain_ms"] = cuda_ms(lambda: plain(q, k, v),
+                                          max(3, iters // 4))
+                rec["library_ms"] = cuda_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        q.transpose(-1, -2), k.transpose(-1, -2),
+                        v.transpose(-1, -2))
+                    if name == "flash_attention_t"
+                    else F.scaled_dot_product_attention(q, k, v), iters)
+                rec.update(attention_bound(shape, dt, clock_hz))
+            records[name, shape] = rec
+            print(json.dumps({"phase": "attention_case", **rec}), flush=True)
+    emit("attention_kernels", seconds=round(time.perf_counter() - t, 3),
+         tolerance={k: {"atol": v[0], "rtol": v[1]}
+                    for k, v in ATTN_TOL.items()},
+         max_abs_err=worst, sm_clock_hz=clock_hz)
+    return {"records": records, "worst": worst}
+
+
+def segformer_phase(smi: str) -> dict:
+    """SegFormer-B0 at 1024x1024 through Pipeline; returns the attention
+    launch counts of the path's run."""
+    import numpy as np
+    import torch
+
+    import bugcar_image_segmentation_tpu_torch as port
+    from bugcar_image_segmentation_tpu_torch import synthetic
+    from bugcar_image_segmentation_tpu_torch.calibration import \
+        toy_calibration
+    from bugcar_image_segmentation_tpu_torch.convert.flax_segformer import \
+        random_segformer_variables
+    from bugcar_image_segmentation_tpu_torch.ops import cuda as kcuda
+
+    t = time.perf_counter()
+    variables = random_segformer_variables(SEED)
+    frames = [f for f, _, _ in synthetic.video(
+        seed=SEED, num_frames=STREAM_FRAMES, shape=FRAME_HW)]
+    h, w = SEGFORMER_HW
+
+    def engine(name, dtype="bfloat16", device="cuda"):
+        cfg = port.ModelConfig(name=name, input_width=w, input_height=h,
+                               dtype=dtype)
+        return port.build_engine(name, cfg, variables=variables,
+                                 device=device)
+
+    eng, eng_q = engine("segformer_b0"), engine("segformer_b0_q")
+    eng_plain = engine("segformer_b0")
+    eng_plain.module.xla_attention = True       # the yardstick
+    grid_cfg = port.GridConfig(8.0, 8.0, 0.1)
+    cal = toy_calibration(SEGFORMER_HW)
+    pipe = port.Pipeline(eng, cal, grid_cfg)
+    plain = port.Pipeline(eng_plain, cal, grid_cfg)
+    pipe_q = port.Pipeline(eng_q, cal, grid_cfg, interpolation="native")
+    if pipe_q.builder.label_scale != 4:
+        fail("segformer_b0_q's native grid does not read the quarter-res "
+             "labels")
+    for p in (pipe, plain, pipe_q):
+        p.warmup(frames[0].shape)
+        p.run_batch(np.stack(frames[:4]))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t
+
+    kcuda.reset_launches()
+    single = pipe(frames[0]).cpu().numpy()
+    streamed = np.stack(list(pipe.stream(iter(frames), depth=2)))
+    batched = pipe.run_batch(np.stack(frames[:4])).cpu().numpy()
+    q_single = pipe_q(frames[0]).cpu().numpy()
+    q_batched = pipe_q.run_batch(np.stack(frames[:4])).cpu().numpy()
+    launches = dict(kcuda.LAUNCHES)
+    # per backbone batch: 2 blocks x stage 0 (one head, token-major) and
+    # 2 x stages 1-3 (several heads, channel-major)
+    batches = 1 + len(frames) + 1 + 1 + 1
+    want_launches = {"flash_attention": 2 * batches,
+                     "flash_attention_t": 6 * batches}
+    for name, n in want_launches.items():
+        if launches[name] != n:
+            fail(f"{name} launched {launches[name]} times for {batches} "
+                 f"backbone batches; expected {n}")
+    if launches["fused_bottleneck"]:
+        fail("the SegFormer path launched the ENet kernel")
+    want = (grid_cfg.cells_h, grid_cfg.cells_w)
+    for name, g in (("single", single[None]), ("stream", streamed),
+                    ("batch", batched), ("q_single", q_single[None]),
+                    ("q_batch", q_batched)):
+        if g.dtype != np.int8 or g.shape[1:] != want:
+            fail(f"segformer {name} grids are {g.dtype} {g.shape}, want "
+                 f"int8 {want}")
+        if not set(np.unique(g).tolist()) <= {-1, 0, 100}:
+            fail(f"segformer {name} grid values {np.unique(g)} not in "
+                 f"{{-1, 0, 100}}")
+    same_single = float((single == streamed[0]).mean())
+    same_batch = float((batched == streamed[:4]).mean())
+    same_q = float((q_single == q_batched[0]).mean())
+    if min(same_single, same_batch, same_q) < AGREE_BF16:
+        fail(f"segformer pipe(frame) / run_batch / _q agree on "
+             f"{same_single} / {same_batch} / {same_q} of cells; budget "
+             f"{AGREE_BF16}")
+
+    # kernel vs plain attention, bf16, on the card
+    plain_grids = np.stack(list(plain.stream(iter(frames), depth=2)))
+    cell_agree = float((plain_grids == streamed).mean())
+    with torch.no_grad():
+        lab_k = eng.predict(np.stack(frames[:4])).cpu().numpy()
+        lab_p = eng_plain.predict(np.stack(frames[:4])).cpu().numpy()
+    label_agree = float((lab_k == lab_p).mean())
+    if cell_agree < AGREE_BF16 or label_agree < AGREE_BF16:
+        fail(f"segformer_b0 kernel vs plain attention (bf16): labels "
+             f"{label_agree}, cells {cell_agree} agree; budget {AGREE_BF16}")
+
+    # f32 on the card (kernel) vs the port's f32 run on the CPU (plain)
+    with torch.no_grad():
+        lg_card = engine("segformer_b0", "float32").logits(frames[0]).cpu()
+        lg_cpu = engine("segformer_b0", "float32", "cpu").logits(frames[0])
+    if not bool(torch.isfinite(lg_card).all()):
+        fail("segformer float32 logits on the card are not finite")
+    f32_err = float((lg_card - lg_cpu).abs().max())
+    f32_label_agree = float((lg_card.argmax(-1) == lg_cpu.argmax(-1))
+                            .float().mean())
+    if f32_err > F32_LOGIT_ATOL or f32_label_agree < AGREE_F32:
+        fail(f"segformer_b0 f32 on the card vs on the CPU: max |logit "
+             f"err| {f32_err} (budget {F32_LOGIT_ATOL}), labels agree "
+             f"{f32_label_agree} (budget {AGREE_F32})")
+
+    # speed: the engines take turns, as in the ENet path phase
+    def frame_ms(p, i):
+        s = time.perf_counter()
+        p(frames[i % len(frames)]).cpu()
+        return 1e3 * (time.perf_counter() - s)
+
+    def stream_fps(p):
+        s = time.perf_counter()
+        out = list(p.stream(iter(frames), depth=2))
+        return len(out) / (time.perf_counter() - s)
+
+    def batch_ms(p):
+        s = time.perf_counter()
+        p.run_batch(np.stack(frames[:4])).cpu()
+        return 1e3 * (time.perf_counter() - s)
+
+    runs = (("segformer_b0", pipe), ("segformer_b0_xla_attention", plain),
+            ("segformer_b0_q_native", pipe_q))
+    samples = {k: {"ms_per_frame": [], "stream_fps": [], "batch4_ms": []}
+               for k, _ in runs}
+    for r in range(SPEED_ROUNDS):
+        for label, p in (runs if r % 2 == 0 else runs[::-1]):
+            got = samples[label]
+            got["ms_per_frame"] += [frame_ms(p, r * 4 + i) for i in range(4)]
+            got["stream_fps"].append(stream_fps(p))
+            got["batch4_ms"].append(batch_ms(p))
+    speed = {label: {m: quartiles(v) for m, v in got.items()}
+             for label, got in samples.items()}
+    emit("segformer_path", seconds=round(time.perf_counter() - t, 3),
+         setup_seconds=round(setup_s, 3), input_hw=list(SEGFORMER_HW),
+         backbone_batches=batches, launches=launches,
+         grid_shape=list(want), single_vs_stream_cells=same_single,
+         batch_vs_stream_cells=same_batch, q_single_vs_batch_cells=same_q,
+         label_agree_bf16=label_agree, cell_agree_bf16=cell_agree,
+         f32_card_vs_cpu_max_logit_err=f32_err,
+         f32_card_vs_cpu_label_agree=f32_label_agree, speed=speed,
+         nvidia_smi=smi)
+    return launches
+
+
+def attention_entry(name: str, att: dict, launches: dict) -> dict:
+    """The kernel line's entry for one attention kernel: per launch,
+    averaged over the SegFormer-B0 stages where the path launches it
+    (flash_attention: stage 0; flash_attention_t: stages 1-3)."""
+    stages = ATTN_STAGES[:1] if name == "flash_attention" else ATTN_STAGES[1:]
+    recs = [att["records"][name, s] for s in stages]
+
+    def mean(key):
+        return sum(r[key] for r in recs) / len(recs)
+
+    bound = mean("bound_ms")
+    by_bytes = sum(r["bound_ms"] for r in recs if r["bound_by"] == "bytes")
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": "bugcar_image_segmentation_tpu_torch/csrc/"
+                  "flash_attention.cu",
+        "replaces": "bugcar_image_segmentation_tpu/ops/pallas/attention.py:"
+                    + ("82" if name == "flash_attention" else "205"),
+        "launches": launches[name],
+        "max_abs_err": att["worst"][name],
+        "ms": mean("ms"),
+        "plain_ms": mean("plain_ms"),
+        "bound_ms": bound,
+        "bound_by": "bytes" if by_bytes >= bound * len(recs) / 2
+                    else "operations",
+        "library_ms": mean("library_ms"),
+    }
+
+
+def main() -> int:
+    faulthandler.dump_traceback_later(DEADLINE_S, exit=True)
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the GPU host",
+              file=sys.stderr)
+        return 2
+    try:
+        import bugcar_image_segmentation_tpu_torch  # noqa: F401
+    except ImportError as exc:
+        print(f"chip_smoke: the port package is not importable ({exc}); "
+              f"run from the root of a checkout", file=sys.stderr)
+        return 2
+    from bugcar_image_segmentation_tpu_torch.ops.cuda import build as kbuild
+
+    # float32 on the card means float32: cuDNN convs default to TF32.
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+
+    # -- env -----------------------------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0])
+    dev = torch.device("cuda")
+    emit("env", nvidia_smi=smi, sm_clock_max_mhz=clock_mhz,
+         torch=torch.__version__, cuda=torch.version.cuda,
+         device=torch.cuda.get_device_name(0),
+         count=torch.cuda.device_count(), cudnn_allow_tf32=False,
+         float32_matmul_precision="highest")
+
+    # -- build ---------------------------------------------------------------
+    t = time.perf_counter()
+    lib = kbuild.library()
+    ptxas = [ln.strip() for ln in kbuild.build_log.splitlines()
+             if "registers" in ln or "spill" in ln]
+    emit("build", seconds=round(time.perf_counter() - t, 3),
+         nvcc_seconds=kbuild.build_seconds, ptxas=ptxas)
+
+    enet_entry = enet_phases(lib, smi, dev)
+    att = attention_phase(lib, 1e6 * clock_mhz)
+    seg_launches = segformer_phase(smi)
+
+    # -- result --------------------------------------------------------------
+    kernels = [enet_entry] + [attention_entry(n, att, seg_launches)
+                              for n in ("flash_attention",
+                                        "flash_attention_t")]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,6 @@
-"""The port's CUDA kernels on the card, against their plain PyTorch versions.
+"""The port's CUDA kernels on the card, against their plain PyTorch versions
+(the ENet bottleneck and flash attention), and the SegFormer engine on the
+card against its plain attention.
 
 Needs an NVIDIA card (Hopper, sm_90a) and nvcc; every test here skips
 without a card.  This file imports neither JAX nor the JAX package, so it
@@ -118,3 +120,125 @@ def test_wrapper_rejects(dev, bad):
     with pytest.raises(ValueError):
         fused_bottleneck(x, *args, kind="regular")
     assert kcuda.LAUNCHES["fused_bottleneck"] == before
+
+
+# -- flash attention -------------------------------------------------------
+#
+# |kernel - plain| <= atol + rtol * |plain|: float32 2e-5 / 0 (the JAX
+# package's own flash-attention tolerance), TF32 off; bfloat16 1e-5 /
+# 2^-7 — both versions compute in f32 from the same bf16 operands and
+# round once, so they differ by at most one bf16 ulp (<= 2^-7 |x|).
+
+ATTN_TOL = {torch.float32: (2e-5, 0.0), torch.bfloat16: (1e-5, 2 ** -7)}
+# (B, H, Nq, Nkv, d): SegFormer-B0's four stages at 1024x1024, a B1-B3
+# head dim, the blocked-recurrence regime of the JAX kernel (Nkv > 2048),
+# and ragged / single-key shapes.
+ATTN_SHAPES = [(1, 1, 65536, 1024, 32), (1, 2, 16384, 1024, 32),
+               (1, 5, 4096, 1024, 32), (1, 8, 1024, 1024, 32),
+               (1, 2, 16384, 1024, 64), (1, 1, 4096, 4096, 32),
+               (2, 3, 1000, 77, 64), (1, 2, 130, 1, 32)]
+
+
+def _qkv(shape, dtype, dev, seed=0):
+    b, h, nq, nkv, d = shape
+    rng = np.random.default_rng(seed)
+
+    def t(*s):
+        return torch.as_tensor(rng.standard_normal(s).astype(np.float32),
+                               device=dev).to(dtype)
+
+    return t(b, h, nq, d), t(b, h, nkv, d), t(b, h, nkv, d)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", ATTN_SHAPES,
+                         ids=["-".join(map(str, s)) for s in ATTN_SHAPES])
+@pytest.mark.parametrize("name", ["flash_attention", "flash_attention_t"])
+def test_attention_kernel_matches_plain(dev, name, shape, dtype):
+    from bugcar_image_segmentation_tpu_torch.ops.cuda import attention as att
+    q, k, v = _qkv(shape, dtype, dev)
+    if name == "flash_attention_t":
+        q, k, v = (x.transpose(-1, -2).contiguous() for x in (q, k, v))
+    fn = getattr(att, name)
+    plain = (att.attention_reference_t if name == "flash_attention_t"
+             else att.attention_reference)
+    before = kcuda.LAUNCHES[name]
+    got = fn(q, k, v)
+    assert kcuda.LAUNCHES[name] == before + 1
+    ref = plain(q, k, v)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    atol, rtol = ATTN_TOL[dtype]
+    diff = (got.float() - ref.float()).abs()
+    assert bool((diff <= atol + rtol * ref.float().abs()).all()), \
+        float(diff.max())
+
+
+def test_attention_extreme_logits(dev):
+    """The online softmax survives scores in the thousands."""
+    from bugcar_image_segmentation_tpu_torch.ops.cuda.attention import \
+        flash_attention
+    q = torch.full((1, 1, 64, 32), 30.0, device=dev)
+    k = torch.cat([torch.full((1, 1, 32, 32), 30.0, device=dev),
+                   torch.full((1, 1, 32, 32), -30.0, device=dev)], dim=2)
+    v = torch.ones(1, 1, 64, 32, device=dev)
+    out = flash_attention(q, k, v)
+    torch.testing.assert_close(out, torch.ones_like(out), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("bad", ["d48", "noncontig", "half", "kvshape",
+                                 "device"])
+@pytest.mark.parametrize("name", ["flash_attention", "flash_attention_t"])
+def test_attention_wrapper_rejects(dev, name, bad):
+    from bugcar_image_segmentation_tpu_torch.ops.cuda import attention as att
+    d = 48 if bad == "d48" else 32
+    q, k, v = _qkv((1, 2, 64, 32, d), torch.float32, dev)
+    if name == "flash_attention_t":
+        q, k, v = (x.transpose(-1, -2).contiguous() for x in (q, k, v))
+    if bad == "noncontig":   # same shape and values, other strides
+        q = q.transpose(-1, -2).contiguous().transpose(-1, -2)
+    elif bad == "half":
+        q, k, v = q.half(), k.half(), v.half()
+    elif bad == "kvshape":
+        v = v[..., :16].contiguous()
+    elif bad == "device":
+        k = k.cpu()
+    before = kcuda.LAUNCHES[name]
+    with pytest.raises(ValueError):
+        getattr(att, name)(q, k, v)
+    assert kcuda.LAUNCHES[name] == before
+
+
+def test_segformer_engine_on_card_matches_plain_attention(dev):
+    """SegFormer-B0 at 512x512 on the card, attention through the kernel
+    against the same weights with ``xla_attention`` (the plain version):
+    float32 logits within 1e-3 (TF32 off), bf16 labels agree on >= 0.98
+    of pixels (the two round the attention output at different points;
+    seeded random weights have many near-ties)."""
+    import bugcar_image_segmentation_tpu_torch as port
+    from bugcar_image_segmentation_tpu_torch import synthetic
+    from bugcar_image_segmentation_tpu_torch.convert.flax_segformer import \
+        random_segformer_variables
+    variables = random_segformer_variables(0)
+    frames = np.stack([f for f, _, _ in synthetic.video(
+        seed=0, num_frames=2, shape=(480, 640))])
+    for dtype in ("float32", "bfloat16"):
+        cfg = port.ModelConfig(name="segformer_b0", input_width=512,
+                               input_height=512, dtype=dtype)
+        eng = port.build_engine("segformer_b0", cfg, variables=variables,
+                                device="cuda")
+        before = kcuda.LAUNCHES["flash_attention"] + \
+            kcuda.LAUNCHES["flash_attention_t"]
+        got = eng.logits(frames)
+        after = kcuda.LAUNCHES["flash_attention"] + \
+            kcuda.LAUNCHES["flash_attention_t"]
+        assert after - before == 8
+        eng.module.xla_attention = True
+        ref = eng.logits(frames)
+        assert bool(torch.isfinite(got).all())
+        if dtype == "float32":
+            assert float((got - ref).abs().max()) <= 1e-3
+        else:
+            agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+            assert agree >= 0.98, agree

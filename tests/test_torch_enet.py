@@ -202,7 +202,7 @@ def test_engine_self_init_is_seeded():
 
 def test_unported_models_raise():
     with pytest.raises(NotImplementedError, match="not ported"):
-        port.build_engine("segformer", device="cpu")
+        port.build_engine("unet", device="cpu")
 
 
 def test_input_shape_checked():
