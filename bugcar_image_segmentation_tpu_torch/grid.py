@@ -98,7 +98,8 @@ class OccupancyGridBuilder:
         if laserscan:
             raise NotImplementedError(
                 "laserscan grids are not ported yet; they come with the "
-                "laserscan slice (polar plans, ROADMAP Queue 1 item 6)")
+                "laserscan slice (polar plans; ROADMAP Queue 1, the "
+                "laserscan grid)")
         self.cal = cal
         self.grid = grid
         self.mode = mode

@@ -10,14 +10,19 @@ Port of ``bugcar_image_segmentation_tpu/models/api.py`` (``Engine`` and
 - ``"segformer[_bN][_q]"``: :class:`~.segformer.SegFormer` B0 (default)
   to B3, attention through the hand-written CUDA kernel; ``_q`` keeps the
   head at 1/4 resolution (argmax there, labels nearest-lifted; see
-  :attr:`Engine.label_scale`).  ``_int8`` and ``_hc`` are not ported.
+  :attr:`Engine.label_scale`).  ``_int8`` and ``_hc`` are not ported;
+- ``"[deeplab_]xception[_q][_fs]"``: DeepLabV3+ on Xception-65
+  (:class:`~.xception.Xception65DeepLab`); ``_fs`` runs the 55 dilation-1
+  separable convs of the entry and middle flows through the hand-written
+  CUDA kernel, ``_q`` as for SegFormer.  ``_int8`` is not ported.
 
 An engine runs ``preprocess → backbone → argmax → 3-class remap`` on its
 device.  Weights come as a Flax-layout numpy tree (``{"params",
 "batch_stats"}``, bridged by ``convert/``), as a port ``state_dict``, or —
 absent both — from ``seed``.  Parameters are loaded in float32; ENet folds
 BatchNorm in f32 and is then cast to the config's compute dtype, SegFormer
-casts its Dense and conv weights and keeps its norms in f32.
+and Xception cast their Dense and conv weights and keep their norms in
+f32.
 """
 
 from __future__ import annotations
@@ -30,12 +35,15 @@ from ..configs import ModelConfig
 from ..convert.flax_enet import enet_state_dict
 from ..convert.flax_segformer import (random_segformer_variables,
                                       segformer_state_dict)
+from ..convert.flax_xception import (random_xception_variables,
+                                     xception_state_dict)
 from ..ops.resize import upsample_nearest_int
 from . import preprocess as pre
 from . import remap
 from .enet import ENet
 from .enet_fused import FusedENet
 from .segformer import SEGFORMER_PRESETS, SegFormer
+from .xception import Xception65DeepLab
 
 EXECUTORS = ("enet", "enet_fused")     # the ENet engines
 
@@ -48,7 +56,7 @@ def segformer_variant(name: str) -> Tuple[str, bool]:
         if flag in tokens:
             raise NotImplementedError(
                 f"SegFormer variant {name!r}: _{flag} is not ported yet "
-                f"(ROADMAP.md Queue 1 item 11)")
+                f"(ROADMAP.md Queue 1, the quantized and cascaded variants)")
     rest = [t for t in tokens if t != "q"]
     if len(rest) > 1 or (rest and rest[0] not in SEGFORMER_PRESETS):
         raise ValueError(
@@ -59,6 +67,25 @@ def segformer_variant(name: str) -> Tuple[str, bool]:
 
 def _is_segformer(name: str) -> bool:
     return name == "segformer" or name.startswith("segformer_")
+
+
+def _is_xception(name: str) -> bool:
+    return (name in ("deeplab_xception", "xception")
+            or name.startswith(("deeplab_xception_", "xception_")))
+
+
+def xception_variant(name: str) -> Tuple[bool, bool]:
+    """``"[deeplab_]xception[_q][_fs]"`` → (quarter head, fused sepconvs);
+    the JAX package's ``_int8`` raises ``NotImplementedError``."""
+    tokens = name.replace("deeplab_xception", "xception").split("_")[1:]
+    if any(t not in ("q", "int8", "fs") for t in tokens):
+        raise ValueError(f"unknown Xception variant {name!r}; grammar is "
+                         f"[deeplab_]xception[_q][_fs]")
+    if "int8" in tokens:
+        raise NotImplementedError(
+            f"Xception variant {name!r}: _int8 is not ported yet (ROADMAP.md "
+            f"Queue 1, the quantized and cascaded variants)")
+    return "q" in tokens, "fs" in tokens
 
 
 def frames_to_device(frames_bgr, device: torch.device) -> torch.Tensor:
@@ -73,7 +100,8 @@ class Engine:
     """A segmentation backbone behind a frame → class-map API.
 
     Args:
-      name: "enet", "enet_fused" or "segformer[_bN][_q]".
+      name: "enet", "enet_fused", "segformer[_bN][_q]" or
+        "[deeplab_]xception[_q][_fs]".
       cfg: model geometry, normalisation constants and compute dtype.
       variables: a Flax-layout numpy variable tree, or a port state dict;
         None initialises from ``seed``.
@@ -81,35 +109,55 @@ class Engine:
       seed: the seed of a self-initialised engine.
 
     ``label_scale``: the head emits labels at 1/label_scale of the input
-    resolution (4 for SegFormer ``_q``); :meth:`segment` lifts them back,
+    resolution (4 for ``_q``); :meth:`segment` lifts them back,
     :meth:`segment_head` does not.
+
+    ``frame_by_frame`` (True for SegFormer): the backbone takes the frames
+    of a batch one at a time (see :meth:`forward`); False runs the whole
+    batch in one call.
     """
 
     def __init__(self, name: str, cfg: ModelConfig,
                  variables: Optional[Mapping] = None,
                  device="cuda", seed: int = 0):
         self.size: Optional[str] = None
-        self.label_scale = 1
+        self.family = "enet"
+        quarter = False
         if _is_segformer(name):
+            self.family = "segformer"
             self.size, quarter = segformer_variant(name)
-            self.label_scale = 4 if quarter else 1
+        elif _is_xception(name):
+            self.family = "xception"
+            quarter, self.fused = xception_variant(name)
         elif name not in EXECUTORS:
             raise NotImplementedError(
                 f"model {name!r} is not ported yet; the port has "
-                f"{EXECUTORS} and segformer[_b0|_b1|_b2|_b3][_q]")
+                f"{EXECUTORS}, segformer[_b0|_b1|_b2|_b3][_q] and "
+                f"[deeplab_]xception[_q][_fs]")
+        self.label_scale = 4 if quarter else 1
         self.name = name
         self.cfg = cfg
         self.device = torch.device(device)
         self.dtype = getattr(torch, cfg.dtype)
         self.remap_table = remap.remap_table(cfg.num_classes)
         self.seed = seed
+        # In bf16 on the card SegFormer's whole-batch forward gives a frame
+        # other logits than it gets alone (its first conv already differs);
+        # ENet's and Xception's give the same logits (at most an ENet
+        # deconv's intermediate differs), and frame by frame would cost
+        # them 1.2-2.7x a 4-frame batch's time (measured with
+        # scripts/torch_batch_invariance.py).
+        self.frame_by_frame = self.family == "segformer"
         self.load_variables(variables)
 
     def load_variables(self, variables: Optional[Mapping]) -> None:
         """Swap in weights: a Flax-layout tree, a port state dict, or None
         (random from the engine's seed)."""
-        if self.size is not None:
+        if self.family == "segformer":
             self._load_segformer(variables)
+            return
+        if self.family == "xception":
+            self._load_xception(variables)
             return
         enet = ENet(self.cfg.num_classes)
         if variables is None:
@@ -141,13 +189,43 @@ class Engine:
             self.dtype)
         self.forward_fn = self.module
 
+    def _load_xception(self, variables: Optional[Mapping]) -> None:
+        if variables is None:
+            variables = random_xception_variables(
+                self.seed, num_classes=self.cfg.num_classes)
+        sd = (xception_state_dict(variables) if "params" in variables
+              else variables)
+        middle = sum(1 for k in sd if k.startswith("middle")
+                     and k.endswith(".sep0.depthwise.weight"))
+        model = Xception65DeepLab(
+            num_classes=self.cfg.num_classes, middle_blocks=middle,
+            head_upsample="quarter" if self.label_scale == 4 else "full",
+            fused_sepconv=self.fused)
+        model.load_state_dict(sd)
+        self.module = model.to(self.device).eval().to_compute_dtype(
+            self.dtype)
+        self.forward_fn = self.module
+
     # -- the device program --------------------------------------------------
 
     @torch.no_grad()
     def forward(self, frames: torch.Tensor) -> torch.Tensor:
-        """(N, H, W, 3) uint8 BGR on the device → (N, h, w, C) f32 logits."""
+        """(N, H, W, 3) uint8 BGR on the device → (N, h, w, C) f32 logits.
+
+        A frame's logits are the same alone, in a batch or in a stream,
+        bit for bit.  cuBLAS and cuDNN choose their GEMM and convolution
+        algorithms by the batch size, and in bf16 the other summation
+        orders flip argmax near-ties; where that happens (SegFormer-B0's
+        first conv already differs, and no setting controls it) the
+        engine runs the backbone one frame at a time
+        (:attr:`frame_by_frame`).  Preprocessing,
+        argmax, remap and grid stay batched (they are elementwise or
+        gather per frame)."""
         x = pre.preprocess_for_config(frames, self.cfg)
-        return self.forward_fn(x)
+        if not self.frame_by_frame or x.shape[0] == 1:
+            return self.forward_fn(x)
+        return torch.cat([self.forward_fn(x[i:i + 1])
+                          for i in range(x.shape[0])])
 
     @torch.no_grad()
     def segment_head(self, frames: torch.Tensor, mode: str = "multiclass"
@@ -202,17 +280,23 @@ def build_engine(name: str = "enet",
                  cfg: Optional[ModelConfig] = None,
                  variables: Optional[Mapping] = None,
                  device="cuda", seed: int = 0) -> Engine:
-    """Engine by name: ``"enet"``, ``"enet_fused"`` or
-    ``"segformer[_b0|_b1|_b2|_b3][_q]"`` (the others of the JAX package's
-    zoo come with later slices).  SegFormer defaults to 1024x1024, as the
-    JAX package's."""
+    """Engine by name: ``"enet"``, ``"enet_fused"``,
+    ``"segformer[_b0|_b1|_b2|_b3][_q]"`` or ``"[deeplab_]xception[_q][_fs]"``
+    (the others of the JAX package's zoo come with later slices).
+    SegFormer defaults to 1024x1024 and Xception to 1024x512 (W x H), as
+    the JAX package's."""
     name = name.lower()
     if cfg is None:
-        cfg = (ModelConfig(name=name, input_width=1024, input_height=1024,
-                           num_classes=15) if _is_segformer(name)
-               else ModelConfig(name=name))
+        if _is_segformer(name):
+            cfg = ModelConfig(name=name, input_width=1024,
+                              input_height=1024, num_classes=15)
+        elif _is_xception(name):
+            cfg = ModelConfig(name="deeplab_xception", input_width=1024,
+                              input_height=512, num_classes=15)
+        else:
+            cfg = ModelConfig(name=name)
     return Engine(name, cfg, variables=variables, device=device, seed=seed)
 
 
 __all__ = ["Engine", "build_engine", "frames_to_device", "segformer_variant",
-           "EXECUTORS"]
+           "xception_variant", "EXECUTORS"]

@@ -31,21 +31,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.pooling import max_pool_with_indices, max_unpool
+from .layers import _cast, _same_pads
 
 BN_EPS = 1e-3
-
-
-def _same_pads(size: int, k: int, stride: int, dilation: int
-               ) -> Tuple[int, int]:
-    """(lo, hi) padding of one axis under XLA's SAME rule."""
-    out = -(-size // stride)
-    total = max((out - 1) * stride + (k - 1) * dilation + 1 - size, 0)
-    return total // 2, total - total // 2
-
-
-def _cast(t: Optional[torch.Tensor], like: torch.Tensor
-          ) -> Optional[torch.Tensor]:
-    return t if t is None or t.dtype == like.dtype else t.to(like.dtype)
 
 
 class Conv(nn.Module):

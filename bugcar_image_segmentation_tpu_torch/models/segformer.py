@@ -42,7 +42,7 @@ from ..ops.cuda.attention import (attention_reference,
                                   attention_reference_t, flash_attention,
                                   flash_attention_t)
 from ..ops.resize import upsample_bilinear
-from .enet import _cast, _same_pads
+from .layers import BatchNorm, Conv, _cast
 
 LN_EPS = 1e-6      # flax.linen.LayerNorm's default
 BN_EPS = 1e-5      # the head's fuse_bn
@@ -86,39 +86,6 @@ class Dense(nn.Module):
                              w.t().expand(x.shape[0], -1, -1))
 
 
-class Conv(nn.Module):
-    """``nn.Conv`` on NHWC tensors, with Flax SAME padding or the official
-    implementation's centred ``k // 2`` ("torch"), and groups."""
-
-    def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
-                 groups: int = 1, bias: bool = True, pad: str = "same"):
-        super().__init__()
-        if pad not in ("same", "torch"):
-            raise ValueError(f"pad must be 'same' or 'torch', got {pad!r}")
-        self.kernel, self.stride, self.groups, self.pad = (kernel, stride,
-                                                           groups, pad)
-        self.weight = nn.Parameter(torch.zeros(cout, cin // groups, kernel,
-                                               kernel))
-        self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = x.permute(0, 3, 1, 2)            # NCHW view of NHWC memory
-        k, s = self.kernel, self.stride
-        if self.pad == "torch":
-            pad = k // 2
-        else:
-            (th, bh), (tw, bw) = (_same_pads(y.shape[2], k, s, 1),
-                                  _same_pads(y.shape[3], k, s, 1))
-            if (th, tw) == (bh, bw):
-                pad = th
-            else:
-                y = F.pad(y, (tw, bw, th, bh))
-                pad = 0
-        y = F.conv2d(y, _cast(self.weight, x), _cast(self.bias, x), s, pad,
-                     1, self.groups)
-        return y.permute(0, 2, 3, 1)
-
-
 class Pointwise(nn.Module):
     """A 1x1 ``nn.Conv`` (``kernel`` (1, 1, in, out) ↔ ``weight``
     (out, in, 1, 1)) applied over the last axis of an NHWC tensor."""
@@ -146,25 +113,6 @@ class LayerNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.layer_norm(x.float(), (x.shape[-1],), self.scale.float(),
                             self.bias.float(), LN_EPS).to(x.dtype)
-
-
-class BatchNorm(nn.Module):
-    """Inference ``nn.BatchNorm`` over the last axis, as Flax computes it:
-    ``(x - mean) * (scale * rsqrt(var + eps)) + bias`` in f32, cast to the
-    input's dtype."""
-
-    def __init__(self, c: int, eps: float = BN_EPS):
-        super().__init__()
-        self.eps = eps
-        self.scale = nn.Parameter(torch.ones(c))
-        self.bias = nn.Parameter(torch.zeros(c))
-        self.register_buffer("mean", torch.zeros(c))
-        self.register_buffer("var", torch.ones(c))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = self.scale.float() * torch.rsqrt(self.var.float() + self.eps)
-        y = (x.float() - self.mean.float()) * mul + self.bias.float()
-        return y.to(x.dtype)
 
 
 class OverlapPatchEmbed(nn.Module):
@@ -287,8 +235,8 @@ class SegFormer(nn.Module):
                            (head_cascade, "head_cascade (engine suffix _hc)")):
             if flag:
                 raise NotImplementedError(
-                    f"SegFormer {what} is not ported yet (ROADMAP.md Queue 1 "
-                    f"item 11)")
+                    f"SegFormer {what} is not ported yet (ROADMAP.md Queue 1,"
+                    f" the quantized and cascaded variants)")
         if head_upsample not in ("full", "quarter"):
             raise ValueError(f"head_upsample must be 'full' or 'quarter', "
                              f"got {head_upsample!r}")
@@ -310,7 +258,7 @@ class SegFormer(nn.Module):
             setattr(self, f"linear_c{s}", Dense(c, decoder_dim))
             cin = c
         self.fuse = Pointwise(4 * decoder_dim, decoder_dim, bias=False)
-        self.fuse_bn = BatchNorm(decoder_dim)
+        self.fuse_bn = BatchNorm(decoder_dim, BN_EPS)
         self.classifier = Pointwise(decoder_dim, num_classes)
 
     @classmethod

@@ -1,12 +1,14 @@
 """Build the port's CUDA kernels with plain nvcc and load them with ctypes.
 
-Every ``csrc/*.cu`` source is compiled by one ``nvcc`` call into one
-shared library with a C interface (no PyTorch headers, so the build takes
-seconds), at first use, into ``build/kernels/`` beside the package.  The
-library's name carries a hash of the sources and flags: an unchanged tree
-loads the existing library, a changed one rebuilds.  The library is
-written under a temporary name and renamed into place, so an interrupted
-build leaves nothing that a later one would wait on.
+Every ``csrc/*.cu`` source is compiled by its own ``nvcc`` process, all
+started together, and the objects are linked by one more ``nvcc`` call
+into one shared library with a C interface (no PyTorch headers, so the
+build takes seconds), at first use, into ``build/kernels/`` beside the
+package.  The library's name carries a hash of the sources and flags: an
+unchanged tree loads the existing library, a changed one rebuilds.  The
+objects and the library are written under temporary names and the library
+is renamed into place, so an interrupted build leaves nothing that a
+later one would wait on.
 
 Nothing here runs at import time: the CPU tests import every module, and
 the CPU host has no nvcc.
@@ -27,7 +29,7 @@ PACKAGE_DIR = Path(__file__).resolve().parents[2]
 SOURCE_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 NVCC_TIMEOUT_S = 600
 
 # Filled by the first library() call: seconds nvcc took (0.0 when an
@@ -65,6 +67,29 @@ def _library_path() -> Path:
     return BUILD_DIR / f"libbugcar_kernels-{digest.hexdigest()[:16]}.so"
 
 
+def _run(cmds, what: str) -> str:
+    """Run the commands in parallel; their joined output, or raise with the
+    first failure's."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    logs = []
+    try:
+        for cmd, proc in zip(cmds, procs):
+            out, _ = proc.communicate(timeout=NVCC_TIMEOUT_S)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"{what} failed (exit {proc.returncode}):\n"
+                    f"{' '.join(cmd)}\n{out[-6000:]}")
+            logs.append(out)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return "".join(logs)
+
+
 def build() -> Path:
     """Compile the sources unless a library for them exists; its path."""
     global build_seconds, build_log
@@ -73,19 +98,23 @@ def build() -> Path:
         build_seconds = 0.0
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    sources = [str(s) for s in sorted(SOURCE_DIR.glob("*.cu"))]
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *sources]
+    sources = sorted(SOURCE_DIR.glob("*.cu"))
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+    tmp = BUILD_DIR / f"{tag}.tmp.so"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True,
-                          timeout=NVCC_TIMEOUT_S)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stderr[-6000:]}")
-    os.replace(tmp, out)
+    try:
+        log = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                    for src, o in zip(sources, objs)], "nvcc")
+        log += _run([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]],
+                    "nvcc link")
+        os.replace(tmp, out)
+    finally:
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
+    build_log = log
     out.with_suffix(".log").write_text(build_log)
     return out
 
@@ -104,6 +133,8 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = [_P] * 4 + [_I] * 4 + [ctypes.c_float, _I, _P]
             fn.restype = _I
+        lib.bugcar_fused_sepconv.argtypes = [_P] * 8 + [_I] * 8 + [_P]
+        lib.bugcar_fused_sepconv.restype = _I
         lib.bugcar_cuda_error_string.argtypes = [_I]
         lib.bugcar_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -10,8 +10,8 @@ phase with its elapsed seconds:
 
 1. ``env``    — the card, its power limit and top SM clock (nvidia-smi),
    torch / CUDA versions.
-2. ``build``  — one nvcc call builds every ``csrc/*.cu`` into
-   ``build/kernels/``.
+2. ``build``  — plain nvcc builds every ``csrc/*.cu`` (one process per
+   source, all started together) into one library in ``build/kernels/``.
 3. ``kernels``— ``fused_bottleneck`` on every ENet trunk block (all kinds
    and dilations) at the ENet path's shape (N = 1 and 4, 32x64x128, mid
    32), on the real trunk activations of a seeded ENet, held against its
@@ -39,8 +39,25 @@ phase with its elapsed seconds:
    batch); grids checked, and held against the same weights with the
    plain attention (``xla_attention``) on the card and against a float32
    CPU run of the port; the engines take turns for the speed numbers.
+7. ``sepconv_kernels`` — ``fused_sepconv`` at every site shape of the
+   Xception path at 1024x512 (and the two stride-2 shapes the path leaves
+   to the plain convs), N = 1 and 4, on seeded data, held against
+   ``sepconv_reference`` in bfloat16 and in float32 (TF32 off), and timed
+   at N = 1 in bf16 with CUDA events beside the plain version.
+8. ``xception_path`` — ``build_engine("deeplab_xception_fs")`` (DeepLabV3+
+   on Xception-65 at 1024x512, 15 classes, bf16, seeded weights) and
+   ``Pipeline``: ``pipe(frame)``, ``pipe.stream(frames, depth=2)``, a
+   4-frame batch, and ``deeplab_xception_q_fs`` through
+   ``interpolation="native"``, with the kernel's launch count read around
+   exactly that run (55 per backbone forward, 0 for the plain engine);
+   grids checked, and held against the plain ``"deeplab_xception"`` engine
+   on the card and a float32 CPU run of the port; a label histogram shows
+   that the seeded weights tell pixels apart; the engines take turns for
+   the speed numbers.
 
-Then it prints the nvidia-smi name/power-limit line, a ``{"kernels": ...}``
+Every path's grids of one frame alone, in a batch and in a stream must be
+equal, in bf16 too (SegFormer's engines run the backbone frame by frame,
+``Engine.frame_by_frame``).  Then it prints the nvidia-smi name/power-limit line, a ``{"kernels": ...}``
 line, and last ``{"ok": true, "device": {...}}``.  Any failed check exits
 non-zero before those lines; a hang turns into a traceback and a non-zero
 exit (faulthandler).
@@ -70,12 +87,14 @@ TOL = {"float32": (2e-4, 2e-4),      # the JAX package's f32 budget
 # own attention tolerance); bfloat16 one ulp of the output (both compute in
 # f32 from the same operands and round once).
 ATTN_TOL = {"float32": (2e-5, 0.0), "bfloat16": (1e-5, 2 ** -7)}
-# Share of equal labels / grid cells, fused vs plain engine on the card in
-# bf16: the two round at different points (the kernel keeps f32 between
+# Share of equal labels / grid cells, kernel vs plain engine on the card
+# in bf16: the two round at different points (the kernel keeps f32 between
 # its stages), so argmax near-ties of the seeded random weights flip; a
 # CPU rehearsal of this run measured 0.9936 labels / 0.9949 cells.  The
-# same budget holds SegFormer's kernel engine against its plain attention
-# (a card test at 512x512 passes it).
+# same budget holds SegFormer's and Xception's kernel engines against their
+# plain versions (card tests at 512x512 / 512x256 pass it).  It is not a
+# budget for one engine against itself: a frame's grid alone, in a batch
+# and in a stream must be equal (check_batch_invariant).
 AGREE_BF16 = 0.98
 # The same in f32 (TF32 off), the card's fused engine vs the CPU's plain one.
 AGREE_F32 = 0.999
@@ -87,6 +106,25 @@ ATTN_STAGES = [(1, 1, 65536, 1024, 32), (1, 2, 16384, 1024, 32),
                (1, 5, 4096, 1024, 32), (1, 8, 1024, 1024, 32)]
 ATTN_EXTRA = [(1, 2, 16384, 1024, 64), (1, 1, 4096, 4096, 32)]
 SEGFORMER_HW = (1024, 1024)
+XCEPTION_HW = (512, 1024)  # (H, W): the JAX package's 1024x512 default
+# fused_sepconv's site shapes on the Xception path at 1024x512, (name, H,
+# W, C, F, stride, act_out, launches per frame); the two last shapes are
+# stride-2 sites the path leaves to the plain convs (the JAX gate takes
+# stride 2 only at C = 128), held here so that the stride-2 code is held
+# at C != 128.
+SEP_SITES = [("block1.sep0", 256, 512, 64, 128, 1, True, 1),
+             ("block1.sep1", 256, 512, 128, 128, 1, True, 1),
+             ("block1.sep2", 256, 512, 128, 128, 2, False, 1),
+             ("block2.sep0", 128, 256, 128, 256, 1, True, 1),
+             ("block2.sep1", 128, 256, 256, 256, 1, True, 1),
+             ("block3.sep0", 64, 128, 256, 728, 1, True, 1),
+             ("block3.sep1", 64, 128, 728, 728, 1, True, 1),
+             ("middle", 32, 64, 728, 728, 1, True, 48),
+             ("block2.sep2 (plain on the path)", 128, 256, 256, 256, 2,
+              False, 0),
+             ("block3.sep2 (plain on the path)", 64, 128, 728, 728, 2,
+              False, 0)]
+SEP_PER_FRAME = sum(site[-1] for site in SEP_SITES)     # 55
 
 _T0 = time.perf_counter()
 
@@ -122,6 +160,89 @@ def quartiles(values) -> dict:
     import numpy as np
     return dict(zip(("q25", "median", "q75"),
                     np.percentile(values, [25, 50, 75]).tolist()))
+
+
+def speed_turns(runs, frames) -> dict:
+    """ms per frame (``pipe(frame)``), stream fps (depth 2) and 4-frame
+    batch ms of each (label, pipeline): host clock around work that ends
+    in a device sync; the pipelines take turns (a, b, ..., then the
+    reverse order) so that drift on the shared host falls on all;
+    quartiles over ``SPEED_ROUNDS`` rounds."""
+    import numpy as np
+
+    def frame_ms(p, i):
+        s = time.perf_counter()
+        p(frames[i % len(frames)]).cpu()
+        return 1e3 * (time.perf_counter() - s)
+
+    def stream_fps(p):
+        s = time.perf_counter()
+        out = list(p.stream(iter(frames), depth=2))
+        return len(out) / (time.perf_counter() - s)
+
+    def batch_ms(p):
+        s = time.perf_counter()
+        p.run_batch(np.stack(frames[:4])).cpu()
+        return 1e3 * (time.perf_counter() - s)
+
+    samples = {k: {"ms_per_frame": [], "stream_fps": [], "batch4_ms": []}
+               for k, _ in runs}
+    for r in range(SPEED_ROUNDS):
+        for label, p in (runs if r % 2 == 0 else runs[::-1]):
+            got = samples[label]
+            got["ms_per_frame"] += [frame_ms(p, r * 4 + i) for i in range(4)]
+            got["stream_fps"].append(stream_fps(p))
+            got["batch4_ms"].append(batch_ms(p))
+    return {label: {m: quartiles(v) for m, v in got.items()}
+            for label, got in samples.items()}
+
+
+def backbone_calls(engine, singles: int, *batches: int) -> int:
+    """Backbone forwards of ``singles`` one-frame runs and runs of these
+    batch sizes: one per frame of a batch when the engine runs frame by
+    frame, else one per batch."""
+    return singles + sum(n if engine.frame_by_frame else 1 for n in batches)
+
+
+def check_grids(what: str, grids, want) -> None:
+    import numpy as np
+    for name, g in grids.items():
+        if g.dtype != np.int8 or g.shape[1:] != want:
+            fail(f"{what} {name} grids are {g.dtype} {g.shape}, want int8 "
+                 f"{want}")
+        if not set(np.unique(g).tolist()) <= {-1, 0, 100}:
+            fail(f"{what} {name} grid values {np.unique(g)} not in "
+                 f"{{-1, 0, 100}}")
+
+
+def check_batch_invariant(what: str, **shares: float) -> None:
+    """A frame's grid alone, in a batch and in a stream must be the same
+    (bf16 on the card too; see ``Engine.frame_by_frame``)."""
+    if min(shares.values()) < 1.0:
+        fail(f"{what}: grids of one frame differ between single, batch and "
+             f"stream runs; equal shares {shares}")
+
+
+def check_f32_card_vs_cpu(what: str, card, cpu, frame) -> dict:
+    """f32 logits of one frame from an engine on the card (its kernels,
+    TF32 off) against the port's engine on the CPU (the plain versions):
+    finite, max |err| <= F32_LOGIT_ATOL, labels >= AGREE_F32; returns the
+    phase line's fields."""
+    import torch
+    with torch.no_grad():
+        lg_card = card.logits(frame).cpu()
+        lg_cpu = cpu.logits(frame)
+    if not bool(torch.isfinite(lg_card).all()):
+        fail(f"{what}: float32 logits on the card are not finite")
+    err = float((lg_card - lg_cpu).abs().max())
+    agree = float((lg_card.argmax(-1) == lg_cpu.argmax(-1)).float().mean())
+    if err > F32_LOGIT_ATOL or agree < AGREE_F32:
+        fail(f"{what} f32 on the card vs on the CPU: max |logit err| {err} "
+             f"(budget {F32_LOGIT_ATOL}), labels agree {agree} (budget "
+             f"{AGREE_F32})")
+    return {"f32_card_vs_cpu_max_logit_err": err,
+            "f32_card_vs_cpu_label_agree": agree,
+            "f32_logit_max": float(lg_cpu.abs().max())}
 
 
 def block_bound(n: int, h: int, w: int, kind: str, dtype: str):
@@ -305,28 +426,22 @@ def enet_phases(lib, smi: str, dev) -> dict:
     streamed = np.stack(list(pipe.stream(iter(frames), depth=2)))
     batched = pipe.run_batch(np.stack(frames[:4])).cpu().numpy()
     launches = dict(kcuda.LAUNCHES)
-    # one launch per trunk block per backbone batch: 16 per frame at
-    # batch 1, 16 for the 4-frame batch
+    # one launch per trunk block per backbone forward
     forwarded = 1 + len(frames) + 4
-    batches = 1 + len(frames) + 1
+    batches = backbone_calls(pipe.engine, 1 + len(frames), 4)
     if launches["fused_bottleneck"] != 16 * batches:
         fail(f"fused_bottleneck launched {launches['fused_bottleneck']} "
-             f"times for {batches} backbone batches; expected "
+             f"times for {batches} backbone forwards; expected "
              f"{16 * batches}")
+    if sum(launches.values()) != launches["fused_bottleneck"]:
+        fail(f"the ENet path launched another path's kernel: {launches}")
     want = (grid_cfg.cells_h, grid_cfg.cells_w)
-    for name, g in (("single", single[None]), ("stream", streamed),
-                    ("batch", batched)):
-        if g.dtype != np.int8 or g.shape[1:] != want:
-            fail(f"{name} grids are {g.dtype} {g.shape}, want int8 {want}")
-        if not set(np.unique(g).tolist()) <= {-1, 0, 100}:
-            fail(f"{name} grid values {np.unique(g)} not in {{-1, 0, 100}}")
-    # cuDNN may pick other algorithms for a batch of 4 than for 1, so the
-    # bf16 grids of the two runs may differ at argmax near-ties.
+    check_grids("enet", {"single": single[None], "stream": streamed,
+                         "batch": batched}, want)
     same_single = float((single == streamed[0]).mean())
     same_batch = float((batched == streamed[:4]).mean())
-    if min(same_single, same_batch) < AGREE_BF16:
-        fail(f"pipe(frame) / run_batch agree with stream on {same_single} / "
-             f"{same_batch} of cells; budget {AGREE_BF16}")
+    check_batch_invariant("enet_fused", single_vs_stream=same_single,
+                          batch_vs_stream=same_batch)
 
     # fused vs plain engine, bf16, on the card
     plain_grids = np.stack(list(plain.stream(iter(frames), depth=2)))
@@ -339,61 +454,18 @@ def enet_phases(lib, smi: str, dev) -> dict:
         fail(f"enet_fused vs enet (bf16): labels {label_agree}, cells "
              f"{cell_agree} agree; budget {AGREE_BF16}")
 
-    # fused f32 on the card vs the port's plain f32 engine on the CPU
-    cpu_eng = port.build_engine("enet", cfg32, variables=variables,
-                                device="cpu")
-    with torch.no_grad():
-        lg_card = eng[("enet_fused", "float32")].logits(frames[0]).cpu()
-        lg_cpu = cpu_eng.logits(frames[0])
-    f32_err = float((lg_card - lg_cpu).abs().max())
-    f32_label_agree = float((lg_card.argmax(-1) == lg_cpu.argmax(-1))
-                            .float().mean())
-    if not bool(torch.isfinite(lg_card).all()):
-        fail("float32 logits on the card are not finite")
-    if f32_err > F32_LOGIT_ATOL or f32_label_agree < AGREE_F32:
-        fail(f"enet_fused f32 on the card vs enet f32 on the CPU: max "
-             f"|logit err| {f32_err} (budget {F32_LOGIT_ATOL}), labels "
-             f"agree {f32_label_agree} (budget {AGREE_F32})")
+    f32 = check_f32_card_vs_cpu(
+        "enet_fused", eng[("enet_fused", "float32")],
+        port.build_engine("enet", cfg32, variables=variables, device="cpu"),
+        frames[0])
 
-    # speed: host clock around work that ends in a device sync; the two
-    # engines take turns (fused, plain, plain, fused, ...) so that drift on
-    # the shared host falls on both; medians and quartiles over the rounds
-    def frame_ms(p, i):
-        s = time.perf_counter()
-        p(frames[i % len(frames)]).cpu()
-        return 1e3 * (time.perf_counter() - s)
-
-    def stream_fps(p):
-        s = time.perf_counter()
-        out = list(p.stream(iter(frames), depth=2))
-        return len(out) / (time.perf_counter() - s)
-
-    def batch_ms(p):
-        s = time.perf_counter()
-        p.run_batch(np.stack(frames[:4])).cpu()
-        return 1e3 * (time.perf_counter() - s)
-
-    samples = {k: {"ms_per_frame": [], "stream_fps": [], "batch4_ms": []}
-               for k in ("enet_fused", "enet")}
-    for r in range(SPEED_ROUNDS):
-        order = (("enet_fused", pipe), ("enet", plain))
-        for label, p in (order if r % 2 == 0 else order[::-1]):
-            got = samples[label]
-            got["ms_per_frame"] += [frame_ms(p, r * 4 + i) for i in range(4)]
-            got["stream_fps"].append(stream_fps(p))
-            got["batch4_ms"].append(batch_ms(p))
-    speed = {label: {m: dict(zip(("q25", "median", "q75"),
-                                 np.percentile(v, [25, 50, 75]).tolist()))
-                     for m, v in got.items()}
-             for label, got in samples.items()}
+    speed = speed_turns((("enet_fused", pipe), ("enet", plain)), frames)
     emit("path", seconds=round(time.perf_counter() - t, 3),
          frames_forwarded=forwarded, backbone_batches=batches,
          launches=launches,
          grid_shape=list(want), single_vs_stream_cells=same_single,
          batch_vs_stream_cells=same_batch, label_agree_bf16=label_agree,
-         cell_agree_bf16=cell_agree, f32_card_vs_cpu_max_logit_err=f32_err,
-         f32_card_vs_cpu_label_agree=f32_label_agree, speed=speed,
-         nvidia_smi=smi)
+         cell_agree_bf16=cell_agree, **f32, speed=speed, nvidia_smi=smi)
 
     main_recs = [r for r in per_block
                  if r["dtype"] == "bfloat16" and r["n"] == 1]
@@ -539,34 +611,27 @@ def segformer_phase(smi: str) -> dict:
     q_single = pipe_q(frames[0]).cpu().numpy()
     q_batched = pipe_q.run_batch(np.stack(frames[:4])).cpu().numpy()
     launches = dict(kcuda.LAUNCHES)
-    # per backbone batch: 2 blocks x stage 0 (one head, token-major) and
+    # per backbone forward: 2 blocks x stage 0 (one head, token-major) and
     # 2 x stages 1-3 (several heads, channel-major)
-    batches = 1 + len(frames) + 1 + 1 + 1
+    batches = backbone_calls(eng, 1 + len(frames) + 1, 4, 4)
     want_launches = {"flash_attention": 2 * batches,
                      "flash_attention_t": 6 * batches}
     for name, n in want_launches.items():
         if launches[name] != n:
             fail(f"{name} launched {launches[name]} times for {batches} "
-                 f"backbone batches; expected {n}")
-    if launches["fused_bottleneck"]:
-        fail("the SegFormer path launched the ENet kernel")
+                 f"backbone forwards; expected {n}")
+    if launches["fused_bottleneck"] or launches["fused_sepconv"]:
+        fail("the SegFormer path launched another path's kernel")
     want = (grid_cfg.cells_h, grid_cfg.cells_w)
-    for name, g in (("single", single[None]), ("stream", streamed),
-                    ("batch", batched), ("q_single", q_single[None]),
-                    ("q_batch", q_batched)):
-        if g.dtype != np.int8 or g.shape[1:] != want:
-            fail(f"segformer {name} grids are {g.dtype} {g.shape}, want "
-                 f"int8 {want}")
-        if not set(np.unique(g).tolist()) <= {-1, 0, 100}:
-            fail(f"segformer {name} grid values {np.unique(g)} not in "
-                 f"{{-1, 0, 100}}")
+    check_grids("segformer", {
+        "single": single[None], "stream": streamed, "batch": batched,
+        "q_single": q_single[None], "q_batch": q_batched}, want)
     same_single = float((single == streamed[0]).mean())
     same_batch = float((batched == streamed[:4]).mean())
     same_q = float((q_single == q_batched[0]).mean())
-    if min(same_single, same_batch, same_q) < AGREE_BF16:
-        fail(f"segformer pipe(frame) / run_batch / _q agree on "
-             f"{same_single} / {same_batch} / {same_q} of cells; budget "
-             f"{AGREE_BF16}")
+    check_batch_invariant("segformer_b0", single_vs_stream=same_single,
+                          batch_vs_stream=same_batch,
+                          q_single_vs_batch=same_q)
 
     # kernel vs plain attention, bf16, on the card
     plain_grids = np.stack(list(plain.stream(iter(frames), depth=2)))
@@ -579,57 +644,20 @@ def segformer_phase(smi: str) -> dict:
         fail(f"segformer_b0 kernel vs plain attention (bf16): labels "
              f"{label_agree}, cells {cell_agree} agree; budget {AGREE_BF16}")
 
-    # f32 on the card (kernel) vs the port's f32 run on the CPU (plain)
-    with torch.no_grad():
-        lg_card = engine("segformer_b0", "float32").logits(frames[0]).cpu()
-        lg_cpu = engine("segformer_b0", "float32", "cpu").logits(frames[0])
-    if not bool(torch.isfinite(lg_card).all()):
-        fail("segformer float32 logits on the card are not finite")
-    f32_err = float((lg_card - lg_cpu).abs().max())
-    f32_label_agree = float((lg_card.argmax(-1) == lg_cpu.argmax(-1))
-                            .float().mean())
-    if f32_err > F32_LOGIT_ATOL or f32_label_agree < AGREE_F32:
-        fail(f"segformer_b0 f32 on the card vs on the CPU: max |logit "
-             f"err| {f32_err} (budget {F32_LOGIT_ATOL}), labels agree "
-             f"{f32_label_agree} (budget {AGREE_F32})")
+    f32 = check_f32_card_vs_cpu(
+        "segformer_b0", engine("segformer_b0", "float32"),
+        engine("segformer_b0", "float32", "cpu"), frames[0])
 
-    # speed: the engines take turns, as in the ENet path phase
-    def frame_ms(p, i):
-        s = time.perf_counter()
-        p(frames[i % len(frames)]).cpu()
-        return 1e3 * (time.perf_counter() - s)
-
-    def stream_fps(p):
-        s = time.perf_counter()
-        out = list(p.stream(iter(frames), depth=2))
-        return len(out) / (time.perf_counter() - s)
-
-    def batch_ms(p):
-        s = time.perf_counter()
-        p.run_batch(np.stack(frames[:4])).cpu()
-        return 1e3 * (time.perf_counter() - s)
-
-    runs = (("segformer_b0", pipe), ("segformer_b0_xla_attention", plain),
-            ("segformer_b0_q_native", pipe_q))
-    samples = {k: {"ms_per_frame": [], "stream_fps": [], "batch4_ms": []}
-               for k, _ in runs}
-    for r in range(SPEED_ROUNDS):
-        for label, p in (runs if r % 2 == 0 else runs[::-1]):
-            got = samples[label]
-            got["ms_per_frame"] += [frame_ms(p, r * 4 + i) for i in range(4)]
-            got["stream_fps"].append(stream_fps(p))
-            got["batch4_ms"].append(batch_ms(p))
-    speed = {label: {m: quartiles(v) for m, v in got.items()}
-             for label, got in samples.items()}
+    speed = speed_turns((("segformer_b0", pipe),
+                         ("segformer_b0_xla_attention", plain),
+                         ("segformer_b0_q_native", pipe_q)), frames)
     emit("segformer_path", seconds=round(time.perf_counter() - t, 3),
          setup_seconds=round(setup_s, 3), input_hw=list(SEGFORMER_HW),
          backbone_batches=batches, launches=launches,
          grid_shape=list(want), single_vs_stream_cells=same_single,
          batch_vs_stream_cells=same_batch, q_single_vs_batch_cells=same_q,
-         label_agree_bf16=label_agree, cell_agree_bf16=cell_agree,
-         f32_card_vs_cpu_max_logit_err=f32_err,
-         f32_card_vs_cpu_label_agree=f32_label_agree, speed=speed,
-         nvidia_smi=smi)
+         label_agree_bf16=label_agree, cell_agree_bf16=cell_agree, **f32,
+         speed=speed, nvidia_smi=smi)
     return launches
 
 
@@ -660,6 +688,226 @@ def attention_entry(name: str, att: dict, launches: dict) -> dict:
         "bound_by": "bytes" if by_bytes >= bound * len(recs) / 2
                     else "operations",
         "library_ms": mean("library_ms"),
+    }
+
+
+def sepconv_bound(n: int, h: int, w: int, c: int, f: int, stride: int,
+                  dtype: str):
+    """(least ms, "bytes" | "operations") of one fused_sepconv launch: x
+    read and the output written once, the pointwise weights (in x's
+    dtype) and the f32 taps and folded BatchNorms read once; the depthwise
+    and pointwise FLOPs, 2·Ho·Wo·(9C + C·F) per image, at the peak rate of
+    the input type."""
+    item = 2 if dtype == "bfloat16" else 4
+    ho, wo = h // stride, w // stride
+    flops = 2 * n * ho * wo * (9 * c + c * f)
+    nbytes = (item * (n * (h * w * c + ho * wo * f) + c * f)
+              + 4 * (9 * c + 2 * c + 2 * f))
+    t_bytes, t_ops = nbytes / MEM_RATE, flops / PEAK[dtype]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def sepconv_phase(lib) -> dict:
+    """fused_sepconv at every site shape of the Xception path (N = 1 and
+    4, bf16 and f32) against its plain version, timed at N = 1 in bf16;
+    the records by site name and the worst error."""
+    import numpy as np
+    import torch
+
+    from bugcar_image_segmentation_tpu_torch.ops.cuda import sepconv as sc
+
+    t = time.perf_counter()
+    records = {}
+    worst = 0.0
+    for i, (name, h, w, c, f, stride, act, per_frame) in enumerate(
+            SEP_SITES):
+        rng = np.random.default_rng(SEED + i)
+
+        def dev(a):
+            return torch.as_tensor(np.asarray(a, np.float32), device="cuda")
+
+        args = [dev(rng.standard_normal((3, 3, 1, c)) * 0.3),
+                dev(rng.uniform(0.7, 1.3, c)), dev(rng.uniform(-0.1, 0.1, c)),
+                dev(rng.standard_normal((c, f)) / np.sqrt(c)),
+                dev(rng.uniform(0.7, 1.3, f)), dev(rng.uniform(-0.1, 0.1, f))]
+        base = dev(rng.standard_normal((4, h, w, c)))
+        rec = {"site": name, "shape": [h, w, c, f], "stride": stride,
+               "act_out": act, "launches_per_frame": per_frame}
+        kw = dict(strides=stride, act_out=act)
+        for dt in ("float32", "bfloat16"):
+            atol, rtol = TOL[dt]
+            for n in (1, 4):
+                x = base[:n].to(getattr(torch, dt)).contiguous()
+                got = sc.fused_sepconv(x, *args, **kw)
+                ref = sc.sepconv_reference(x, *args, **kw)
+                torch.cuda.synchronize()
+                diff = (got.float() - ref.float()).abs()
+                err = float(diff.max())
+                if not bool(torch.isfinite(got.float()).all()):
+                    fail(f"fused_sepconv {name} {dt} n={n}: not finite")
+                if bool((diff > atol + rtol * ref.float().abs()).any()):
+                    fail(f"fused_sepconv {name} {dt} n={n}: max |err| {err} "
+                         f"exceeds {atol} + {rtol}*|ref|")
+                worst = max(worst, err)
+                rec[f"max_abs_err_{dt}_n{n}"] = err
+            if dt != "bfloat16":
+                continue
+            x = base[:1].bfloat16().contiguous()
+            out = torch.empty_like(got[:1])
+            # the path passes the pointwise weights rounded once to bf16
+            kargs = args[:3] + [args[3].bfloat16()] + args[4:]
+            raw = sc.launch_args(x, out, *kargs, **kw)
+            iters = 200 if h * w <= 64 * 128 else 50
+            # device time: bare launches, no Python checks
+            rec["ms"] = cuda_ms(lambda: lib.bugcar_fused_sepconv(*raw), iters)
+            rec["wrapper_ms"] = cuda_ms(
+                lambda: sc.fused_sepconv(x, *kargs, **kw), iters)
+            rec["plain_ms"] = cuda_ms(
+                lambda: sc.sepconv_reference(x, *args, **kw), iters // 4)
+            rec["bound_ms"], rec["bound_by"] = sepconv_bound(
+                1, h, w, c, f, stride, dt)
+            rec["library_ms"] = None
+        records[name] = rec
+        print(json.dumps({"phase": "sepconv_case", **rec}), flush=True)
+    on_path = [r for r in records.values() if r["launches_per_frame"]]
+    per_frame = {k: sum(r[k] * r["launches_per_frame"] for r in on_path)
+                 for k in ("ms", "plain_ms", "bound_ms")}
+    emit("sepconv_kernels", seconds=round(time.perf_counter() - t, 3),
+         tolerance={k: {"atol": v[0], "rtol": v[1]} for k, v in TOL.items()},
+         max_abs_err=worst, launches_per_frame=SEP_PER_FRAME,
+         per_frame_bf16_n1_ms=per_frame)
+    return {"records": records, "worst": worst, "per_frame": per_frame}
+
+
+def xception_phase(smi: str) -> dict:
+    """DeepLabV3+ / Xception-65 at 1024x512 through Pipeline, the fused
+    sepconvs through the kernel; returns the launch counts of the path's
+    run."""
+    import numpy as np
+    import torch
+
+    import bugcar_image_segmentation_tpu_torch as port
+    from bugcar_image_segmentation_tpu_torch import synthetic
+    from bugcar_image_segmentation_tpu_torch.calibration import \
+        toy_calibration
+    from bugcar_image_segmentation_tpu_torch.convert.flax_xception import \
+        random_xception_variables
+    from bugcar_image_segmentation_tpu_torch.ops import cuda as kcuda
+
+    t = time.perf_counter()
+    variables = random_xception_variables(SEED)
+    frames = [f for f, _, _ in synthetic.video(
+        seed=SEED, num_frames=STREAM_FRAMES, shape=FRAME_HW)]
+    h, w = XCEPTION_HW
+
+    def engine(name, dtype="bfloat16", device="cuda"):
+        cfg = port.ModelConfig(name="deeplab_xception", input_width=w,
+                               input_height=h, dtype=dtype)
+        return port.build_engine(name, cfg, variables=variables,
+                                 device=device)
+
+    eng, eng_plain = engine("deeplab_xception_fs"), engine("deeplab_xception")
+    eng_q = engine("deeplab_xception_q_fs")
+    grid_cfg = port.GridConfig(8.0, 8.0, 0.1)
+    cal = toy_calibration(XCEPTION_HW)
+    pipe = port.Pipeline(eng, cal, grid_cfg)
+    plain = port.Pipeline(eng_plain, cal, grid_cfg)
+    pipe_q = port.Pipeline(eng_q, cal, grid_cfg, interpolation="native")
+    if pipe_q.builder.label_scale != 4:
+        fail("deeplab_xception_q_fs's native grid does not read the "
+             "quarter-res labels")
+    for p in (pipe, plain, pipe_q):
+        p.warmup(frames[0].shape)
+        p.run_batch(np.stack(frames[:4]))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t
+
+    kcuda.reset_launches()
+    single = pipe(frames[0]).cpu().numpy()
+    streamed = np.stack(list(pipe.stream(iter(frames), depth=2)))
+    batched = pipe.run_batch(np.stack(frames[:4])).cpu().numpy()
+    q_single = pipe_q(frames[0]).cpu().numpy()
+    q_streamed = np.stack(list(pipe_q.stream(iter(frames[:4]), depth=2)))
+    q_batched = pipe_q.run_batch(np.stack(frames[:4])).cpu().numpy()
+    launches = dict(kcuda.LAUNCHES)
+    batches = (backbone_calls(eng, 1 + len(frames), 4)
+               + backbone_calls(eng_q, 1 + 4, 4))
+    if launches["fused_sepconv"] != SEP_PER_FRAME * batches:
+        fail(f"fused_sepconv launched {launches['fused_sepconv']} times for "
+             f"{batches} backbone forwards; expected "
+             f"{SEP_PER_FRAME * batches}")
+    if sum(launches.values()) != launches["fused_sepconv"]:
+        fail(f"the Xception path launched another path's kernel: {launches}")
+    kcuda.reset_launches()
+    plain_grids = np.stack(list(plain.stream(iter(frames), depth=2)))
+    if any(kcuda.LAUNCHES.values()):
+        fail(f"the plain Xception engine launched kernels: {kcuda.LAUNCHES}")
+    want = (grid_cfg.cells_h, grid_cfg.cells_w)
+    check_grids("xception", {
+        "single": single[None], "stream": streamed, "batch": batched,
+        "plain": plain_grids, "q_single": q_single[None],
+        "q_stream": q_streamed, "q_batch": q_batched}, want)
+    same = {"single_vs_stream": float((single == streamed[0]).mean()),
+            "batch_vs_stream": float((batched == streamed[:4]).mean()),
+            "q_single_vs_batch": float((q_single == q_batched[0]).mean()),
+            "q_stream_vs_batch": float((q_streamed == q_batched).mean())}
+    check_batch_invariant("deeplab_xception_fs", **same)
+
+    # kernel vs plain engine, bf16, on the card; the labels' histogram
+    cell_agree = float((plain_grids == streamed).mean())
+    with torch.no_grad():
+        lab_k = eng.logits(np.stack(frames[:4])).argmax(-1)
+        lab_p = eng_plain.logits(np.stack(frames[:4])).argmax(-1)
+    label_agree = float((lab_k == lab_p).float().mean())
+    share = (torch.bincount(lab_k.flatten(), minlength=eng.cfg.num_classes)
+             .float() / lab_k.numel()).tolist()
+    if cell_agree < AGREE_BF16 or label_agree < AGREE_BF16:
+        fail(f"deeplab_xception_fs vs deeplab_xception (bf16): labels "
+             f"{label_agree}, cells {cell_agree} agree; budget {AGREE_BF16}")
+    if max(share) > 0.99:
+        fail(f"one class takes {max(share)} of the pixels: the seeded "
+             f"weights are degenerate and the agreements mean nothing")
+
+    f32 = check_f32_card_vs_cpu(
+        "deeplab_xception_fs", engine("deeplab_xception_fs", "float32"),
+        engine("deeplab_xception", "float32", "cpu"), frames[0])
+
+    speed = speed_turns((("deeplab_xception_fs", pipe),
+                         ("deeplab_xception", plain),
+                         ("deeplab_xception_q_fs_native", pipe_q)), frames)
+    emit("xception_path", seconds=round(time.perf_counter() - t, 3),
+         setup_seconds=round(setup_s, 3), input_hw=list(XCEPTION_HW),
+         backbone_forwards=batches, launches=launches,
+         grid_shape=list(want), batch_invariance=same,
+         label_agree_bf16=label_agree, cell_agree_bf16=cell_agree,
+         label_share=share, **f32, speed=speed, nvidia_smi=smi)
+    return launches
+
+
+def sepconv_entry(sep: dict, launches: dict) -> dict:
+    """The kernel line's entry for fused_sepconv: per launch, averaged over
+    the 55 launches of one frame (bf16, N = 1, site shapes weighted by
+    their launches per frame)."""
+    recs = [r for r in sep["records"].values() if r["launches_per_frame"]]
+    per = {k: v / SEP_PER_FRAME for k, v in sep["per_frame"].items()}
+    by_bytes = sum(r["bound_ms"] * r["launches_per_frame"] for r in recs
+                   if r["bound_by"] == "bytes")
+    return {
+        "name": "fused_sepconv",
+        "route": "cuda",
+        "source": "bugcar_image_segmentation_tpu_torch/csrc/"
+                  "fused_sepconv.cu",
+        "replaces": "bugcar_image_segmentation_tpu/ops/pallas/sepconv.py:"
+                    "121",
+        "launches": launches["fused_sepconv"],
+        "max_abs_err": sep["worst"],
+        "ms": per["ms"],
+        "plain_ms": per["plain_ms"],
+        "bound_ms": per["bound_ms"],
+        "bound_by": ("bytes" if by_bytes >= sep["per_frame"]["bound_ms"] / 2
+                     else "operations"),
+        "library_ms": None,
     }
 
 
@@ -710,11 +958,14 @@ def main() -> int:
     enet_entry = enet_phases(lib, smi, dev)
     att = attention_phase(lib, 1e6 * clock_mhz)
     seg_launches = segformer_phase(smi)
+    sep = sepconv_phase(lib)
+    xc_launches = xception_phase(smi)
 
     # -- result --------------------------------------------------------------
-    kernels = [enet_entry] + [attention_entry(n, att, seg_launches)
-                              for n in ("flash_attention",
-                                        "flash_attention_t")]
+    kernels = ([enet_entry] + [attention_entry(n, att, seg_launches)
+                               for n in ("flash_attention",
+                                         "flash_attention_t")]
+               + [sepconv_entry(sep, xc_launches)])
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Where the time of the PyTorch port's paths goes, on one NVIDIA GPU.
 
-    python3 scripts/torch_profile_path.py [--engine enet|segformer_b0]
-                                          [--frames 8]
+    python3 scripts/torch_profile_path.py
+        [--engine enet|segformer_b0|deeplab_xception] [--frames 8]
 
 from the root of a checkout, on the GPU host.  It builds the engines and
 the pipeline as ``chip_smoke.py`` does (seeded weights through the weight
@@ -17,7 +17,13 @@ bridge, the toy calibration, synthetic 640x480 frames, grid 8 m x 8 m at
   through the kernel ("segformer_b0") and through the plain version
   ("segformer_b0_xla_attention"); stages upload, preprocess, embed (the
   four patch embeddings), blocks (the eight transformer blocks and the
-  stage norms; attention is a part of them), head, remap, grid, download.
+  stage norms; attention is a part of them), head, remap, grid, download;
+- ``--engine deeplab_xception``: DeepLabV3+ on Xception-65 1024x512 bf16,
+  the 55 entry- and middle-flow sepconvs through the kernel
+  ("deeplab_xception_fs") and through the plain convs
+  ("deeplab_xception"); stages upload, preprocess, entry (stem and blocks
+  1-3), middle (16 blocks), exit, aspp, decode (decoder and head), remap,
+  grid, download.
 
 Measurements:
 
@@ -26,8 +32,9 @@ Measurements:
 - ``profile``: ``torch.profiler`` over ``pipe(frame)`` for the frames:
   wall and device-busy milliseconds per frame (the union of the device
   activity intervals), the device's idle share, kernel launches per frame,
-  the device time of the attention kernel per frame (SegFormer), and the
-  kernels that take the most device time.
+  the device time of the path's hand-written kernels per frame (the
+  attention kernel for SegFormer, the fused sepconv for Xception), and
+  the kernels that take the most device time.
 
 Last it prints the nvidia-smi name/power-limit line.  Exits non-zero
 without a CUDA device.
@@ -112,9 +119,37 @@ def _segformer_stages(eng, pipe, stage, frame):
     return stage("download", lambda: grid.cpu())
 
 
+def _xception_stages(eng, pipe, stage, frame):
+    """One frame through the Xception engine's stages."""
+    from bugcar_image_segmentation_tpu_torch.models import preprocess as pre
+    from bugcar_image_segmentation_tpu_torch.models import remap
+    from bugcar_image_segmentation_tpu_torch.models.api import \
+        frames_to_device
+
+    m = eng.module
+    f = stage("upload", lambda: frames_to_device(frame[None], eng.device))
+    x = stage("preprocess", lambda: pre.preprocess_for_config(f, eng.cfg))
+    y, low_level = stage("entry", lambda: m.entry(x))
+    y = stage("middle", lambda: m.middle(y))
+    y = stage("exit", lambda: m.exit_flow(y))
+    y = stage("aspp", lambda: m.aspp(y))
+    logits = stage("decode", lambda: m.decode(y, low_level,
+                                              (x.shape[1], x.shape[2])))
+    seg = stage("remap", lambda: eng.to_input_res(
+        remap.logits_to_drivability(logits, eng.remap_table)))
+    grid = stage("grid", lambda: pipe.builder.build(seg))
+    return stage("download", lambda: grid.cpu())
+
+
+# Device-time names of the port's hand-written kernels, by path.
+KERNEL_NAMES = {"segformer_b0": "flash_attention_kernel",
+                "deeplab_xception": "fused_sepconv_kernel"}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--engine", choices=("enet", "segformer_b0"),
+    ap.add_argument("--engine",
+                    choices=("enet", "segformer_b0", "deeplab_xception"),
                     default="enet")
     ap.add_argument("--frames", type=int, default=8)
     args = ap.parse_args()
@@ -131,6 +166,8 @@ def main() -> int:
         random_enet_variables
     from bugcar_image_segmentation_tpu_torch.convert.flax_segformer import \
         random_segformer_variables
+    from bugcar_image_segmentation_tpu_torch.convert.flax_xception import \
+        random_xception_variables
     from torch.profiler import ProfilerActivity, profile
 
     smi = subprocess.run(
@@ -145,13 +182,20 @@ def main() -> int:
         runs = [(name, name, False) for name in ("enet_fused", "enet")]
         cfg = port.ModelConfig()
         one_frame_stages = _enet_stages
-    else:
+    elif args.engine == "segformer_b0":
         variables = random_segformer_variables(0)
         runs = [("segformer_b0", "segformer_b0", False),
                 ("segformer_b0_xla_attention", "segformer_b0", True)]
         cfg = port.ModelConfig(name="segformer_b0", input_width=1024,
                                input_height=1024)
         one_frame_stages = _segformer_stages
+    else:
+        variables = random_xception_variables(0)
+        runs = [(name, name, False) for name in ("deeplab_xception_fs",
+                                                 "deeplab_xception")]
+        cfg = port.ModelConfig(name="deeplab_xception", input_width=1024,
+                               input_height=512)
+        one_frame_stages = _xception_stages
     cal = toy_calibration((cfg.input_height, cfg.input_width))
 
     for label, name, plain_attention in runs:
@@ -203,8 +247,8 @@ def main() -> int:
             k[1] += 1
         busy_us = _busy_us([(e.time_range.start, e.time_range.end)
                             for e in device])
-        attention_us = sum(v[0] for k, v in kernels.items()
-                           if "flash_attention_kernel" in k)
+        kernel_us = sum(v[0] for k, v in kernels.items()
+                        if KERNEL_NAMES.get(args.engine, "-") in k)
         top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
         print(json.dumps({
             "engine": label, "measure": "profile", "frames": n,
@@ -212,7 +256,8 @@ def main() -> int:
             "device_busy_ms_per_frame": busy_us / n / 1e3,
             "device_idle_share": 1.0 - busy_us / wall_us,
             "device_events_per_frame": len(device) / n,
-            "attention_kernel_ms_per_frame": attention_us / n / 1e3,
+            "kernel": KERNEL_NAMES.get(args.engine),
+            "kernel_ms_per_frame": kernel_us / n / 1e3,
             "top_device_time": [
                 {"name": k[:90], "us_per_frame": v[0] / n,
                  "count_per_frame": v[1] / n} for k, v in top],

@@ -1,6 +1,8 @@
 """The port's CUDA kernels on the card, against their plain PyTorch versions
-(the ENet bottleneck and flash attention), and the SegFormer engine on the
-card against its plain attention.
+(the ENet bottleneck, flash attention, the fused separable conv), the
+SegFormer and Xception engines on the card against their plain versions,
+and batch invariance (a frame's result alone equals its result in a
+batch).
 
 Needs an NVIDIA card (Hopper, sm_90a) and nvcc; every test here skips
 without a card.  This file imports neither JAX nor the JAX package, so it
@@ -233,9 +235,154 @@ def test_segformer_engine_on_card_matches_plain_attention(dev):
         got = eng.logits(frames)
         after = kcuda.LAUNCHES["flash_attention"] + \
             kcuda.LAUNCHES["flash_attention_t"]
-        assert after - before == 8
+        # 8 launches per backbone forward; SegFormer runs frame by frame
+        assert after - before == 8 * (len(frames) if eng.frame_by_frame
+                                      else 1)
         eng.module.xla_attention = True
         ref = eng.logits(frames)
+        assert bool(torch.isfinite(got).all())
+        if dtype == "float32":
+            assert float((got - ref).abs().max()) <= 1e-3
+        else:
+            agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+            assert agree >= 0.98, agree
+
+
+# -- fused separable conv --------------------------------------------------
+#
+# |kernel - plain| <= atol + rtol * |plain|, the bottleneck's budgets
+# (TOL): float32 with TF32 off; bfloat16 — the two sum the nine taps and
+# the pointwise product in other orders, so a bf16 rounding of y1 can land
+# one ulp apart and carry through the product.
+
+# (n, h, w, c, f, stride, act_out): the Xception path's site shapes at
+# 1024x512 come in chip_smoke.py; here small, ragged (C, F off the 32 / 64
+# tiles, odd maps, a tile spanning images) and stride 2 at C != 128.
+SEP_SHAPES = [(1, 16, 32, 64, 128, 1, True), (2, 9, 13, 91, 45, 1, True),
+              (3, 5, 7, 3, 5, 1, False), (2, 16, 32, 128, 128, 2, False),
+              (1, 16, 24, 256, 256, 2, False), (1, 8, 16, 728, 728, 2, True),
+              (2, 32, 64, 728, 728, 1, True), (1, 6, 10, 40, 70, 2, True)]
+
+
+def _sep_args(shape, dtype, dev, seed=0):
+    n, h, w, c, f, _, _ = shape
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    x = t(rng.standard_normal((n, h, w, c))).to(dtype)
+    return x, [t(rng.standard_normal((3, 3, 1, c)) * 0.3),
+               t(rng.uniform(0.7, 1.3, c)), t(rng.uniform(-0.1, 0.1, c)),
+               t(rng.standard_normal((c, f)) / np.sqrt(c)),
+               t(rng.uniform(0.7, 1.3, f)), t(rng.uniform(-0.1, 0.1, f))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", SEP_SHAPES,
+                         ids=["-".join(map(str, s[:6])) for s in SEP_SHAPES])
+def test_sepconv_kernel_matches_plain(dev, shape, dtype):
+    from bugcar_image_segmentation_tpu_torch.ops.cuda.sepconv import (
+        fused_sepconv, sepconv_reference)
+    n, h, w, c, f, stride, act = shape
+    x, args = _sep_args(shape, dtype, dev)
+    before = kcuda.LAUNCHES["fused_sepconv"]
+    got = fused_sepconv(x, *args, strides=stride, act_out=act)
+    assert kcuda.LAUNCHES["fused_sepconv"] == before + 1
+    ref = sepconv_reference(x, *args, strides=stride, act_out=act)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (n, h // stride, w // stride,
+                                                f)
+    atol, rtol = TOL[dtype]
+    diff = (got.float() - ref.float()).abs()
+    assert bool((diff <= atol + rtol * ref.float().abs()).all()), \
+        float(diff.max())
+
+
+@pytest.mark.parametrize("bad", ["half", "noncontig", "oddh", "stride3",
+                                 "wdevice", "wdtype", "wshape"])
+def test_sepconv_wrapper_rejects(dev, bad):
+    from bugcar_image_segmentation_tpu_torch.ops.cuda.sepconv import \
+        fused_sepconv
+    shape = (1, 8, 8, 32, 16, 2, True)
+    x, args = _sep_args(shape, torch.float32, dev)
+    stride = 2
+    if bad == "half":
+        x = x.half()
+    elif bad == "noncontig":   # same shape and values, other strides
+        x = x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    elif bad == "oddh":
+        x = x[:, :7].contiguous()
+    elif bad == "stride3":
+        stride = 3
+    elif bad == "wdevice":
+        args[3] = args[3].cpu()
+    elif bad == "wdtype":
+        args[0] = args[0].double()
+    elif bad == "wshape":
+        args[3] = args[3][:, :8].contiguous()
+    before = kcuda.LAUNCHES["fused_sepconv"]
+    with pytest.raises(ValueError):
+        fused_sepconv(x, *args, strides=stride)
+    assert kcuda.LAUNCHES["fused_sepconv"] == before
+
+
+# -- batch invariance and the Xception engine ------------------------------
+
+@pytest.mark.parametrize("name,hw", [("segformer_b0", (512, 512)),
+                                     ("segformer_b0_q", (512, 512)),
+                                     ("deeplab_xception_fs", (512, 1024)),
+                                     ("enet_fused", (256, 512))])
+def test_frame_alone_equals_frame_in_a_batch(dev, name, hw):
+    """bf16 on the card: frame 0's logits alone and inside a batch of 4
+    are bit-equal, and so are the Pipeline's grids (SegFormer's backbone
+    frame by frame, ENet's and Xception's whole-batch)."""
+    import bugcar_image_segmentation_tpu_torch as port
+    from bugcar_image_segmentation_tpu_torch import synthetic
+    from bugcar_image_segmentation_tpu_torch.calibration import \
+        toy_calibration
+    frames = np.stack([f for f, _, _ in synthetic.video(
+        seed=0, num_frames=4, shape=(480, 640))])
+    cfg = port.ModelConfig(name=name, input_width=hw[1], input_height=hw[0])
+    eng = port.build_engine(name, cfg, device="cuda")
+    alone = eng.logits(frames[0])
+    batch = eng.logits(frames)
+    assert torch.equal(alone, batch[0])
+    pipe = port.Pipeline(eng, toy_calibration(hw), port.GridConfig(8.0, 8.0,
+                                                                   0.1))
+    single = np.stack([pipe(f).cpu().numpy() for f in frames])
+    np.testing.assert_array_equal(pipe.run_batch(frames).cpu().numpy(),
+                                  single)
+    np.testing.assert_array_equal(
+        np.stack(list(pipe.stream(iter(frames), depth=2))), single)
+
+
+def test_xception_engine_on_card_matches_plain(dev):
+    """deeplab_xception_fs at 512x256 on the card against the same weights
+    without the kernel: float32 logits within 1e-3 (TF32 off), bf16
+    labels agree on >= 0.98 of pixels; 55 launches per backbone forward
+    (one forward for the two frames: Xception batches)."""
+    import bugcar_image_segmentation_tpu_torch as port
+    from bugcar_image_segmentation_tpu_torch import synthetic
+    from bugcar_image_segmentation_tpu_torch.convert.flax_xception import \
+        random_xception_variables
+    variables = random_xception_variables(0)
+    frames = np.stack([f for f, _, _ in synthetic.video(
+        seed=0, num_frames=2, shape=(480, 640))])
+    for dtype in ("float32", "bfloat16"):
+        cfg = port.ModelConfig(name="deeplab_xception", input_width=512,
+                               input_height=256, dtype=dtype)
+        fused = port.build_engine("deeplab_xception_fs", cfg,
+                                  variables=variables, device="cuda")
+        plain = port.build_engine("deeplab_xception", cfg,
+                                  variables=variables, device="cuda")
+        before = kcuda.LAUNCHES["fused_sepconv"]
+        got = fused.logits(frames)
+        forwards = 2 if fused.frame_by_frame else 1
+        assert kcuda.LAUNCHES["fused_sepconv"] - before == 55 * forwards
+        ref = plain.logits(frames)
+        assert kcuda.LAUNCHES["fused_sepconv"] - before == 55 * forwards
         assert bool(torch.isfinite(got).all())
         if dtype == "float32":
             assert float((got - ref).abs().max()) <= 1e-3

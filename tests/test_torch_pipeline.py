@@ -41,6 +41,12 @@ REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "bugcar_image_segmentation_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "cv2", "msgpack",
              "tensorflow", "bugcar_image_segmentation_tpu")
+# Modules of the later slices, named so that the poisoned import below
+# cannot miss one.
+SLICE_MODULES = ("ops.cuda.attention", "models.segformer",
+                 "convert.flax_segformer", "ops.cuda.sepconv",
+                 "models.layers", "models.deeplab", "models.xception",
+                 "convert.flax_xception")
 GRID = (4.0, 4.0, 0.2)
 MODEL = dict(input_width=64, input_height=32, dtype="float32")
 
@@ -245,6 +251,8 @@ import bugcar_image_segmentation_tpu_torch as port
 mods = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
 for m in mods:
     importlib.import_module(m)
+for m in {SLICE_MODULES!r}:
+    assert "bugcar_image_segmentation_tpu_torch." + m in mods, m
 import chip_smoke
 leaked = [m for m in sys.modules if sys.modules[m] is not None
           and m.split(".")[0] in {FORBIDDEN!r}]
