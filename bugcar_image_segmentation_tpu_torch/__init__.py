@@ -2,24 +2,32 @@
 Hopper (H100).
 
 The JAX package beside it is the reference; this package imports neither
-it nor JAX, Flax, msgpack or cv2.  The ported slices carry two paths:
+it nor JAX, Flax, msgpack or cv2.  The ported slices carry the path
 
-  640x480 uint8 BGR frame → device-side bilinear resize → BGR→RGB +
-  ImageNet normalize → backbone → argmax + 3-class remap → BEV warp →
-  3x3 morph-open → nearest binning → int8 grid
+  640x480 uint8 BGR frame → bilinear resize (on the device, or on the
+  host with ``host_resize=True``, then optionally packed as I420 and
+  converted back on the device) → BGR→RGB + ImageNet normalize →
+  backbone → argmax + 3-class remap → BEV warp → 3x3 morph-open →
+  nearest binning → int8 grid
 
-with the backbone either ENet (``"enet"``, or ``"enet_fused"`` with the
-16 trunk bottlenecks as a hand-written CUDA kernel) or SegFormer B0-B3
-(``"segformer[_bN][_q]"``, attention as a hand-written CUDA kernel).
+with the backbone ENet (``"enet"``, or ``"enet_fused"`` with the 16 trunk
+bottlenecks as a hand-written CUDA kernel), SegFormer B0-B3
+(``"segformer[_bN][_q]"``, attention as a hand-written CUDA kernel) or
+DeepLabV3+ on Xception-65 (``"[deeplab_]xception[_q][_fs]"``), any of them
+with ``_w16`` (weights rounded to bf16).  ``bench.py``'s path is
+``build_engine("enet_w16")`` with ``Pipeline(..., host_resize=True,
+transport="i420")``.
 
 Layer map:
-  ops/        resamplers, pooling, morphology, the homography warp,
-              ops/cuda/ (kernel wrappers; sources in csrc/)
+  ops/        resamplers, the host resize, the I420 transport, pooling,
+              morphology, the homography warp, ops/cuda/ (kernel wrappers;
+              sources in csrc/)
   geometry    calibration-time homography math (host numpy)
-  configs     calibration / grid / model configs (reference JSON schema)
-  models/     ENet and its fused-trunk executor, SegFormer, preprocess,
-              remap, Engine
+  configs     calibration / grid / model / runtime configs
+  models/     ENet and its fused-trunk executor, SegFormer, Xception
+              DeepLab, preprocess, remap, Engine
   convert/    Flax variable trees → the port's state dicts
+  utils/      the Flax checkpoint reader (no msgpack, no Flax)
   grid        segmap → occupancy grid
   pipeline    frame → grid, batched and streaming
   synthetic   procedural road scenes (numpy)

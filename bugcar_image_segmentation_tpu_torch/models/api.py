@@ -16,6 +16,14 @@ Port of ``bugcar_image_segmentation_tpu/models/api.py`` (``Engine`` and
   separable convs of the entry and middle flows through the hand-written
   CUDA kernel, ``_q`` as for SegFormer.  ``_int8`` is not ported.
 
+Any name takes the suffix ``_w16`` (``"enet_w16"``, the engine
+``bench.py`` serves; ``"enet_fused_w16"``, ``"segformer_b0_w16"``,
+``"xception_fs_w16"``): the engine serves from weights rounded to
+bfloat16 at load, as the JAX package's ``Engine.cache_weights`` stores
+them.  ENet then folds its BatchNorms from the rounded leaves where and as
+the JAX engine does (:meth:`~.enet.ENet.round_weights_bf16`); the fused
+trunk gets the f32 values of that fold.
+
 An engine runs ``preprocess → backbone → argmax → 3-class remap`` on its
 device.  Weights come as a Flax-layout numpy tree (``{"params",
 "batch_stats"}``, bridged by ``convert/``), as a port ``state_dict``, or —
@@ -27,7 +35,7 @@ f32.
 
 from __future__ import annotations
 
-from typing import Callable, Mapping, Optional, Tuple
+from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 
@@ -46,6 +54,21 @@ from .segformer import SEGFORMER_PRESETS, SegFormer
 from .xception import Xception65DeepLab
 
 EXECUTORS = ("enet", "enet_fused")     # the ENet engines
+W16 = "_w16"      # suffix: serve from bf16-rounded weights
+
+
+def _split_w16(name: str) -> Tuple[str, bool]:
+    """``"<engine>[_w16]"`` → (engine name, weights rounded to bf16)."""
+    if name.endswith(W16):
+        return name[:-len(W16)], True
+    return name, False
+
+
+def _round_bf16(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A state dict with every float tensor rounded to a bf16 value (kept
+    in f32), as ``Engine.cache_weights`` casts the Flax tree."""
+    return {k: (v.to(torch.bfloat16).float() if v.is_floating_point()
+                else v) for k, v in sd.items()}
 
 
 def segformer_variant(name: str) -> Tuple[str, bool]:
@@ -101,7 +124,8 @@ class Engine:
 
     Args:
       name: "enet", "enet_fused", "segformer[_bN][_q]" or
-        "[deeplab_]xception[_q][_fs]".
+        "[deeplab_]xception[_q][_fs]", each optionally with ``_w16``
+        (weights rounded to bf16 at load).
       cfg: model geometry, normalisation constants and compute dtype.
       variables: a Flax-layout numpy variable tree, or a port state dict;
         None initialises from ``seed``.
@@ -122,18 +146,20 @@ class Engine:
                  device="cuda", seed: int = 0):
         self.size: Optional[str] = None
         self.family = "enet"
+        base, self.weights_bf16 = _split_w16(name)
         quarter = False
-        if _is_segformer(name):
+        if _is_segformer(base):
             self.family = "segformer"
-            self.size, quarter = segformer_variant(name)
-        elif _is_xception(name):
+            self.size, quarter = segformer_variant(base)
+        elif _is_xception(base):
             self.family = "xception"
-            quarter, self.fused = xception_variant(name)
-        elif name not in EXECUTORS:
+            quarter, self.fused = xception_variant(base)
+        elif base not in EXECUTORS:
             raise NotImplementedError(
                 f"model {name!r} is not ported yet; the port has "
                 f"{EXECUTORS}, segformer[_b0|_b1|_b2|_b3][_q] and "
-                f"[deeplab_]xception[_q][_fs]")
+                f"[deeplab_]xception[_q][_fs], each also with {W16}")
+        self.base_name = base
         self.label_scale = 4 if quarter else 1
         self.name = name
         self.cfg = cfg
@@ -152,7 +178,7 @@ class Engine:
 
     def load_variables(self, variables: Optional[Mapping]) -> None:
         """Swap in weights: a Flax-layout tree, a port state dict, or None
-        (random from the engine's seed)."""
+        (random from the engine's seed); ``_w16`` rounds them to bf16."""
         if self.family == "segformer":
             self._load_segformer(variables)
             return
@@ -166,11 +192,13 @@ class Engine:
             sd = (enet_state_dict(variables) if "params" in variables
                   else variables)
             enet.load_state_dict(sd)
+        if self.weights_bf16:
+            enet.round_weights_bf16()
         enet = enet.to(self.device).eval()
-        # Fused kernel arguments come from the f32 parameters; then the
-        # module is cast to the compute dtype in place.
-        forward: Callable = (FusedENet(enet) if self.name == "enet_fused"
-                             else enet)
+        # Fused kernel arguments come from the f32 parameters and folds;
+        # then the module is cast to the compute dtype in place.
+        forward: Callable = (FusedENet(enet)
+                             if self.base_name == "enet_fused" else enet)
         enet.to(self.dtype)
         self.module = enet
         self.forward_fn = forward
@@ -184,7 +212,7 @@ class Engine:
                 self.seed, self.size, self.cfg.num_classes)
         sd = (segformer_state_dict(variables) if "params" in variables
               else variables)
-        model.load_state_dict(sd)
+        model.load_state_dict(_round_bf16(sd) if self.weights_bf16 else sd)
         self.module = model.to(self.device).eval().to_compute_dtype(
             self.dtype)
         self.forward_fn = self.module
@@ -201,7 +229,7 @@ class Engine:
             num_classes=self.cfg.num_classes, middle_blocks=middle,
             head_upsample="quarter" if self.label_scale == 4 else "full",
             fused_sepconv=self.fused)
-        model.load_state_dict(sd)
+        model.load_state_dict(_round_bf16(sd) if self.weights_bf16 else sd)
         self.module = model.to(self.device).eval().to_compute_dtype(
             self.dtype)
         self.forward_fn = self.module
@@ -281,20 +309,22 @@ def build_engine(name: str = "enet",
                  variables: Optional[Mapping] = None,
                  device="cuda", seed: int = 0) -> Engine:
     """Engine by name: ``"enet"``, ``"enet_fused"``,
-    ``"segformer[_b0|_b1|_b2|_b3][_q]"`` or ``"[deeplab_]xception[_q][_fs]"``
-    (the others of the JAX package's zoo come with later slices).
+    ``"segformer[_b0|_b1|_b2|_b3][_q]"`` or ``"[deeplab_]xception[_q][_fs]"``,
+    each optionally with ``_w16`` (the others of the JAX package's zoo come
+    with later slices).
     SegFormer defaults to 1024x1024 and Xception to 1024x512 (W x H), as
     the JAX package's."""
     name = name.lower()
     if cfg is None:
-        if _is_segformer(name):
-            cfg = ModelConfig(name=name, input_width=1024,
+        base, _ = _split_w16(name)
+        if _is_segformer(base):
+            cfg = ModelConfig(name=base, input_width=1024,
                               input_height=1024, num_classes=15)
-        elif _is_xception(name):
+        elif _is_xception(base):
             cfg = ModelConfig(name="deeplab_xception", input_width=1024,
                               input_height=512, num_classes=15)
         else:
-            cfg = ModelConfig(name=name)
+            cfg = ModelConfig(name=base)
     return Engine(name, cfg, variables=variables, device=device, seed=seed)
 
 

@@ -19,6 +19,8 @@ explicitly (for a stride-2 conv on an even input it pads only the bottom
 and right, unlike ``padding=1``).  BatchNorm runs from constants folded in
 f32 (``mul``, ``add`` buffers, refreshed when a state dict is loaded), so
 casting the module to bfloat16 afterwards keeps the f32 fold.
+:meth:`ENet.round_weights_bf16` serves from bf16-rounded weights
+(``_w16``) and refolds as the JAX engine folds bf16 leaves.
 """
 
 from __future__ import annotations
@@ -94,6 +96,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(c))
         self.register_buffer("mul", torch.ones(c), persistent=False)
         self.register_buffer("add", torch.zeros(c), persistent=False)
+        self.folded_bf16 = False
         self.fold()
 
     @torch.no_grad()
@@ -103,6 +106,30 @@ class BatchNorm(nn.Module):
         add = self.bias.float() - self.mean.float() * mul
         self.mul.copy_(mul)
         self.add.copy_(add)
+        self.folded_bf16 = False
+
+    @torch.no_grad()
+    def fold_bf16(self, round_shift: bool) -> None:
+        """Refresh the folded constants from parameters that hold bfloat16
+        values (``_w16``), rounding where the JAX engine rounds when it
+        folds bf16 leaves on the CPU (XLA keeps the last product of each
+        chain in f32): ``rs = bf16(rsqrt(bf16(var + eps)))``, ``mul =
+        scale·rs``; ``add = bias − bf16(bf16(mean·scale)·rs)`` with
+        ``round_shift`` (the JAX package's ``PhaseBatchNorm`` and
+        ``ChwBatchNorm``, its models/enet.py:133-136 and :201-204), else
+        ``bias − mean·mul`` (Flax's BatchNorm, which applies ``(x −
+        mean)·mul + bias``)."""
+        def bf(t):
+            return t.float().to(torch.bfloat16).float()
+
+        scale, bias, mean = bf(self.scale), bf(self.bias), bf(self.mean)
+        rs = bf(torch.rsqrt(bf(bf(self.var) + self.eps)))
+        mul = scale * rs
+        add = (bias - bf(bf(mean * scale) * rs) if round_shift
+               else bias - mean * mul)
+        self.mul.copy_(mul)
+        self.add.copy_(add)
+        self.folded_bf16 = True
 
     def _load_from_state_dict(self, *args, **kwargs):
         super()._load_from_state_dict(*args, **kwargs)
@@ -275,6 +302,22 @@ class ENet(nn.Module):
                         / math.sqrt(fan_in))
             elif isinstance(mod, BatchNorm):
                 mod.fold()
+
+    @torch.no_grad()
+    def round_weights_bf16(self) -> None:
+        """``_w16``: round every float parameter and statistic to a
+        bfloat16 value (kept in f32 tensors) and refold the BatchNorms
+        from them as the JAX ``enet_w16`` engine does.  That engine folds
+        the shift in bf16 too in the blocks it runs in its transposed
+        inference layout (the stem and every block at 16 or 64 channels)
+        and leaves it to Flax's BatchNorm in the 128-channel stage-2/3
+        blocks."""
+        for t in list(self.parameters()) + list(self.buffers()):
+            if t.is_floating_point():
+                t.copy_(t.to(torch.bfloat16).float())
+        for name, mod in self.named_modules():
+            if isinstance(mod, BatchNorm):
+                mod.fold_bf16(round_shift=not name.startswith(("b2_", "b3_")))
 
     @property
     def dtype(self) -> torch.dtype:

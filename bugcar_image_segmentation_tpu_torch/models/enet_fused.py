@@ -8,10 +8,11 @@ down/up-sampling bottlenecks, stages 1/4/5 and the head run the ENet
 module's own layers.
 
 Inference only.  The kernels' arguments — squeezed HWIO weights and
-BatchNorm folded in f32 — are buffers of this module, made from the ENet
-parameters at construction; build it from the float32 ENet (before any
-cast to bfloat16), as :func:`~.api.build_engine` does, and rebuild it after
-loading new weights.
+BatchNorm folded in f32 (for ``_w16``, the f32 values of the bf16-rounded
+fold) — are buffers of this module, made from the ENet at construction;
+build it from the float32 ENet (before any cast to bfloat16, after any
+``round_weights_bf16``), as :func:`~.api.build_engine` does, and rebuild
+it after loading new weights.
 """
 
 from __future__ import annotations
@@ -26,6 +27,11 @@ from .enet import ENet, TRUNK, BatchNorm, ConvBNAct
 
 
 def _fold(bn: BatchNorm) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's folded scale and bias: :func:`fold_bn` in f32 from the
+    parameters, or — after ``ENet.round_weights_bf16`` (``_w16``) — the
+    BatchNorm's own bf16-rounded fold, in f32."""
+    if bn.folded_bf16:
+        return bn.mul.detach().float().clone(), bn.add.detach().float().clone()
     return fold_bn({"scale": bn.scale, "bias": bn.bias},
                    {"mean": bn.mean, "var": bn.var}, eps=bn.eps)
 

@@ -8,7 +8,8 @@ that a path went through the kernels.
 """
 
 LAUNCHES = {"fused_bottleneck": 0, "flash_attention": 0,
-            "flash_attention_t": 0, "fused_sepconv": 0}
+            "flash_attention_t": 0, "fused_sepconv": 0,
+            "strided_gather": 0, "strided_gather_bf16": 0, "halo_add": 0}
 
 
 def reset_launches() -> None:

@@ -135,6 +135,10 @@ def library() -> ctypes.CDLL:
             fn.restype = _I
         lib.bugcar_fused_sepconv.argtypes = [_P] * 8 + [_I] * 8 + [_P]
         lib.bugcar_fused_sepconv.restype = _I
+        lib.bugcar_strided_gather.argtypes = [_P, _P] + [_I] * 6 + [_P]
+        lib.bugcar_strided_gather.restype = _I
+        lib.bugcar_halo_add.argtypes = [_P, _P] + [_I] * 4 + [_P]
+        lib.bugcar_halo_add.restype = _I
         lib.bugcar_cuda_error_string.argtypes = [_I]
         lib.bugcar_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -11,13 +11,20 @@ out.  Batches run through the backbone in chunks of at most 4 frames.
 ``stream()`` keeps ``depth`` frames in flight: CUDA launches are
 asynchronous, so the host prepares frame N+1 while the device computes
 frame N, and results are fetched ``sync_chunk`` grids per device→host
-copy.
+copy; ``transfer_batch=K`` ships K frames per host→device copy.
 
-This slice carries the JAX pipeline's default transport (``"bgr"`` with
-the resize on the device).  The i420 transport, host-side resize, CLAHE,
-the contour filter and laserscan grids raise ``NotImplementedError``:
-they come with later slices (they need cv2-free replacements on the GPU
-host).
+Two transports, as in the JAX package:
+
+- ``"bgr"``: the camera frame goes to the device as it is and is resized
+  there — or, with ``host_resize=True``, resized on the host first
+  (``ops/host_resize.py``, cv2's INTER_LINEAR bytes without cv2);
+- ``"i420"`` (needs ``host_resize=True``): the host resizes and packs the
+  frame as YUV 4:2:0, half the bytes of BGR (``ops/yuv.py``), and the
+  device converts it back to BGR, frame by frame, inside the program.
+  This is the path ``bench.py`` measures.
+
+CLAHE, the contour filter and laserscan grids raise
+``NotImplementedError``: they come with later slices.
 """
 
 from __future__ import annotations
@@ -28,9 +35,11 @@ from typing import Iterable, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .configs import CalibrationConfig, GridConfig
+from .configs import CalibrationConfig, GridConfig, RuntimeConfig
 from .grid import OccupancyGridBuilder
 from .models.api import Engine, frames_to_device
+from .ops import yuv
+from .ops.host_resize import resize_linear
 
 CHUNK = 4   # most frames one backbone batch runs
 
@@ -51,6 +60,9 @@ class Pipeline:
       grid_cfg: metric grid geometry.
       mode: "multiclass" or "binary" (reference bev.py:166 / 97).
       interpolation: warp parity mode (see grid.py).
+      host_resize: resize camera frames to the model's resolution on the
+        host, before the host→device copy.
+      transport: "bgr" or "i420" (see the module docstring).
     """
 
     def __init__(self,
@@ -71,10 +83,9 @@ class Pipeline:
                 f"engine's output resolution {got}")
         if transport not in ("bgr", "i420"):
             raise ValueError(f"unknown transport {transport!r}")
-        if transport == "i420":
-            raise _not_ported("transport='i420'")
-        if host_resize:
-            raise _not_ported("host_resize=True")
+        if transport == "i420" and not host_resize:
+            # The planes are packed at model resolution on the host.
+            raise ValueError("transport='i420' requires host_resize=True")
         if use_clahe:
             raise _not_ported("use_clahe=True")
         if contour_filter:
@@ -84,6 +95,9 @@ class Pipeline:
         self.engine = engine
         self.mode = mode
         self.device = engine.device
+        self.transport = transport
+        self.host_resize = host_resize
+        self._model_hw = got
         # A quarter-resolution head and the native grid compose: the
         # cell-centre warp samples the head's small label map directly
         # (grid.py ``label_scale``); other modes take the lifted map.
@@ -94,31 +108,83 @@ class Pipeline:
             device=self.device)
         self.default_depth = 2
 
-    # -- the device program --------------------------------------------------
+    @classmethod
+    def from_configs(cls,
+                     engine: Engine,
+                     cal: CalibrationConfig,
+                     grid_cfg: GridConfig,
+                     runtime: RuntimeConfig,
+                     **overrides) -> "Pipeline":
+        """A pipeline from a :class:`~.configs.RuntimeConfig`: its
+        ``warp_interpolation`` selects the warp mode and its
+        ``pipeline_depth`` becomes the default streaming depth; keyword
+        overrides win."""
+        kwargs = dict(interpolation=runtime.warp_interpolation)
+        kwargs.update(overrides)
+        pipe = cls(engine, cal, grid_cfg, **kwargs)
+        pipe.default_depth = runtime.pipeline_depth
+        return pipe
 
-    def _to_device(self, frames) -> torch.Tensor:
+    # -- host side -----------------------------------------------------------
+
+    def _prep_host(self, frame_bgr) -> np.ndarray:
+        """One camera frame → what crosses to the device: resized to the
+        model's resolution (``host_resize``), then packed as I420
+        (``transport="i420"``)."""
+        if isinstance(frame_bgr, torch.Tensor):
+            frame_bgr = frame_bgr.cpu().numpy()
+        frame = np.asarray(frame_bgr)
+        if self.host_resize and frame.shape[:2] != self._model_hw:
+            frame = resize_linear(frame, self._model_hw)
+        if self.transport == "i420":
+            frame = yuv.bgr_to_i420_host(frame)
+        return frame
+
+    def _upload(self, frames) -> torch.Tensor:
+        """Camera frames ((K, H, W, 3), or a list of K) → the device
+        program's input, in one host→device copy."""
+        if self.host_resize:
+            frames = np.stack([self._prep_host(f) for f in frames])
+        elif isinstance(frames, list):
+            frames = np.stack(frames)
         return frames_to_device(frames, self.device)
 
+    # -- the device program --------------------------------------------------
+
     @torch.no_grad()
-    def run_chunk(self, frames) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(K ≤ 4, H, W, 3) uint8 frames → ((K, gh, gw) int8 grids,
-        (K, h, w) uint8 segmentation maps), on the device."""
-        frames = self._to_device(frames)
+    def _program(self, frames: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Uploaded frames (K ≤ 4) → ((K, gh, gw) int8 grids, (K, h, w)
+        uint8 segmentation maps), on the device."""
         if frames.shape[0] > CHUNK:
             raise ValueError(f"a chunk holds at most {CHUNK} frames, got "
                              f"{frames.shape[0]}")
+        if self.transport == "i420":
+            # frame by frame, as the JAX program converts a chunk
+            frames = torch.stack([yuv.i420_to_bgr(f, self._model_hw)
+                                  for f in frames])
         heads = self.engine.segment_head(frames, self.mode)
         segs = self.engine.to_input_res(heads)
         src = heads if self.builder.label_scale > 1 else segs
         return self.builder.build(src), segs
 
-    @torch.no_grad()
-    def run_batch(self, frames) -> torch.Tensor:
-        """(K, H, W, 3) uint8 frames → (K, gh, gw) int8 grids, the backbone
-        batched in chunks of at most 4 frames."""
-        frames = self._to_device(frames)
-        return torch.cat([self.run_chunk(frames[i:i + CHUNK])[0]
+    def _program_batch(self, frames: torch.Tensor) -> torch.Tensor:
+        """Uploaded frames → grids, the backbone in chunks of ≤ 4."""
+        return torch.cat([self._program(frames[i:i + CHUNK])[0]
                           for i in range(0, frames.shape[0], CHUNK)])
+
+    def run_chunk(self, frames) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(K ≤ 4, H, W, 3) uint8 camera frames → ((K, gh, gw) int8 grids,
+        (K, h, w) uint8 segmentation maps), on the device."""
+        if len(frames) > CHUNK:
+            raise ValueError(f"a chunk holds at most {CHUNK} frames, got "
+                             f"{len(frames)}")
+        return self._program(self._upload(frames))
+
+    def run_batch(self, frames) -> torch.Tensor:
+        """(K, H, W, 3) uint8 camera frames → (K, gh, gw) int8 grids: one
+        host→device copy, the backbone in chunks of at most 4 frames."""
+        return self._program_batch(self._upload(frames))
 
     def __call__(self, frame_bgr) -> torch.Tensor:
         """One uint8 BGR frame (H, W, 3) → int8 occupancy grid (device)."""
@@ -128,7 +194,7 @@ class Pipeline:
     def segment_and_grid(self, frame_bgr) -> Tuple[torch.Tensor,
                                                    torch.Tensor]:
         """(grid, segmentation map) of one frame, on the device."""
-        grids, segs = self.run_chunk(self._to_device(frame_bgr)[None])
+        grids, segs = self._program(self._upload(frame_bgr[None]))
         return grids[0], segs[0]
 
     # -- streaming ------------------------------------------------------------
@@ -137,29 +203,61 @@ class Pipeline:
                frames: Iterable[np.ndarray],
                depth: Optional[int] = None,
                sync_chunk: Optional[int] = None,
+               transfer_batch: int = 1,
                ) -> Iterator[np.ndarray]:
-        """Pipelined streaming: keeps up to ``depth`` frames in flight and
-        yields host int8 grids in order, ``sync_chunk`` grids per
-        device→host copy (default ``min(depth, 8)``)."""
+        """Pipelined streaming: keeps up to ``depth`` dispatches in flight
+        and yields host int8 grids in order.
+
+        - ``sync_chunk``: dispatches fetched per device→host copy (default
+          ``min(depth, 8)``).
+        - ``transfer_batch``: K frames go to the device as ONE host→device
+          copy and through the backbone together (in chunks of ≤ 4); a
+          final partial batch is padded with its last frame and the
+          padding dropped at the drain.  It adds up to K-1 frames of
+          latency: for recorded video, not a live camera.
+        """
         depth = self.default_depth if depth is None else depth
         if depth < 1:
             raise ValueError("depth must be >= 1")
+        if transfer_batch < 1:
+            raise ValueError("transfer_batch must be >= 1")
         sync_chunk = min(depth, 8) if sync_chunk is None else sync_chunk
-        inflight: List[torch.Tensor] = []
+        inflight: List[Tuple[torch.Tensor, int]] = []   # (K grids, valid)
+        pending: list = []
+
+        def dispatch():
+            if not pending:
+                return
+            n = len(pending)
+            if transfer_batch == 1:
+                inflight.append((self(pending[0])[None], 1))
+            else:
+                padded = pending + [pending[-1]] * (transfer_batch - n)
+                inflight.append((self._program_batch(self._upload(padded)),
+                                 n))
+            pending.clear()
 
         def drain(k: int):
             chunk, inflight[:] = inflight[:k], inflight[k:]
-            yield from torch.stack(chunk).cpu().numpy()
+            fetched = torch.cat([g for g, _ in chunk]).cpu().numpy()
+            off = 0
+            for g, n in chunk:
+                yield from fetched[off:off + n]
+                off += g.shape[0]
 
         for frame in frames:
-            inflight.append(self(frame))
+            pending.append(frame)
+            if len(pending) >= transfer_batch:
+                dispatch()
             if len(inflight) >= depth + sync_chunk:
                 yield from drain(sync_chunk)
+        dispatch()
         while inflight:
             yield from drain(min(sync_chunk, len(inflight)))
 
     def warmup(self, frame_shape: Tuple[int, int, int]) -> float:
-        """Run one dummy frame end to end; returns its seconds."""
+        """Run one dummy camera frame of ``frame_shape`` (H, W, 3) end to
+        end; returns its seconds."""
         t0 = time.perf_counter()
         self(np.zeros(frame_shape, np.uint8)).cpu()
         return time.perf_counter() - t0

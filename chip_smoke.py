@@ -55,6 +55,26 @@ phase with its elapsed seconds:
    that the seeded weights tell pixels apart; the engines take turns for
    the speed numbers.
 
+9. ``bench_path`` — ``bench.py``'s own path on the port:
+   ``build_engine("enet_w16")`` and ``"enet_fused_w16"`` (bf16-rounded
+   weights, bf16, seeded) with ``Pipeline(..., host_resize=True,
+   transport="i420")`` on 640x480 frames (the host resizes to 512x256 and
+   packs I420; the card converts back): the launch counts of its run, p50
+   blocking latency over 20 frames, sustained fps over 100 frames
+   (``depth=16, sync_chunk=16``) with ``transfer_batch`` 4 and 1 (median
+   of 3 passes after a warm pass), the host time of ``_prep_host``, the
+   host→device copy, the device-busy time and share of a frame
+   (torch.profiler) and the device→host copy; ``stream(transfer_batch=4)``
+   over 10 frames (a partial last batch) held equal to the per-frame
+   grids, ``enet_fused_w16`` labels against ``enet_w16``'s, and the card's
+   f32 ``enet_w16`` against a CPU run of the port.
+10. ``probe_kernels`` — ``scripts/torch_probe_strided.py``'s probes (the
+   Mosaic probes of ``scripts/probe_mosaic.py``) run once through
+   ``strided_gather`` and ``halo_add`` with their launch counts read
+   around that run; then each kernel at the probes' (16, 64, 128) shapes
+   held bit-equal to its plain version and timed beside it, the PyTorch
+   call that computes the same function and its bytes bound.
+
 Every path's grids of one frame alone, in a batch and in a stream must be
 equal, in bf16 too (SegFormer's engines run the backbone frame by frame,
 ``Engine.frame_by_frame``).  Then it prints the nvidia-smi name/power-limit line, a ``{"kernels": ...}``
@@ -66,7 +86,9 @@ exit (faulthandler).
 from __future__ import annotations
 
 import faulthandler
+import importlib.util
 import json
+import os
 import subprocess
 import sys
 import time
@@ -125,6 +147,16 @@ SEP_SITES = [("block1.sep0", 256, 512, 64, 128, 1, True, 1),
              ("block3.sep2 (plain on the path)", 64, 128, 728, 728, 2,
               False, 0)]
 SEP_PER_FRAME = sum(site[-1] for site in SEP_SITES)     # 55
+# bench.py's path: frames in the latency and the sustained runs, passes
+BENCH_LATENCY_FRAMES = 20
+BENCH_STREAM_FRAMES = 100
+BENCH_PASSES = 3
+PROFILE_FRAMES = 8
+# the Mosaic probes' (R, W, C) and the kernel launches of one run of
+# scripts/torch_probe_strided.py (Q1-Q3 f32, Q5-Q5d bf16, Q4)
+PROBE_SHAPE = (16, 64, 128)
+PROBE_LAUNCHES = {"strided_gather": 4, "strided_gather_bf16": 4,
+                  "halo_add": 1}
 
 _T0 = time.perf_counter()
 
@@ -911,6 +943,303 @@ def sepconv_entry(sep: dict, launches: dict) -> dict:
     }
 
 
+def load_script(name: str):
+    """``scripts/<name>.py`` as a module."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "scripts", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def device_busy(pipe, frames) -> dict:
+    """torch.profiler over ``pipe(frame)`` for the frames, as
+    ``scripts/torch_profile_path.py`` measures it (with its interval
+    union): wall and device-busy ms per frame (the union of the device
+    activity intervals), the busy share of the profiled wall time, device
+    events per frame."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for f in frames:
+            pipe(f).cpu()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = load_script("torch_profile_path")._busy_us(
+        [(e.time_range.start, e.time_range.end) for e in device])
+    n = len(frames)
+    return {"profiled_wall_ms_per_frame": wall_us / n / 1e3,
+            "device_busy_ms_per_frame": busy / n / 1e3,
+            "device_busy_share": busy / wall_us,
+            "device_events_per_frame": len(device) / n}
+
+
+def bench_phase(smi: str, dev) -> dict:
+    """bench.py's path on the port: enet_w16 and enet_fused_w16 with the
+    host resize and the i420 transport; returns the launch counts of its
+    run."""
+    import numpy as np
+    import torch
+
+    import bugcar_image_segmentation_tpu_torch as port
+    from bugcar_image_segmentation_tpu_torch import synthetic
+    from bugcar_image_segmentation_tpu_torch.calibration import \
+        toy_calibration
+    from bugcar_image_segmentation_tpu_torch.convert.flax_enet import \
+        random_enet_variables
+    from bugcar_image_segmentation_tpu_torch.models.api import \
+        frames_to_device
+    from bugcar_image_segmentation_tpu_torch.ops import cuda as kcuda
+    from bugcar_image_segmentation_tpu_torch.ops.host_resize import \
+        resize_linear
+
+    t = time.perf_counter()
+    variables = random_enet_variables(SEED)
+    frames = [f for f, _, _ in synthetic.video(
+        seed=SEED, num_frames=BENCH_STREAM_FRAMES, shape=FRAME_HW)]
+    grid_cfg = port.GridConfig(8.0, 8.0, 0.1)
+    cfg = port.ModelConfig()                  # ENet 512x256, bf16
+    cal = toy_calibration((cfg.input_height, cfg.input_width))
+    bench = dict(host_resize=True, transport="i420")
+
+    def pipeline(name, dtype="bfloat16", device="cuda"):
+        eng = port.build_engine(name, port.ModelConfig(name=name,
+                                                       dtype=dtype),
+                                variables=variables, device=device)
+        return port.Pipeline(eng, cal, grid_cfg, **bench)
+
+    names = ("enet_w16", "enet_fused_w16")
+    pipes = {name: pipeline(name) for name in names}
+    for p in pipes.values():
+        p.warmup(frames[0].shape)
+        list(p.stream(iter(frames[:8]), depth=16, sync_chunk=16,
+                      transfer_batch=4))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t
+
+    # -- the path's run, its launch counts and its grids ---------------------
+    tail = frames[:10]          # 10 = 4 + 4 + 2: a partial last batch
+    launches, grids = {}, {}
+    for name, p in pipes.items():
+        kcuda.reset_launches()
+        single = p(frames[0]).cpu().numpy()
+        batched = np.stack(list(p.stream(iter(tail), depth=16,
+                                         sync_chunk=16, transfer_batch=4)))
+        launches[name] = dict(kcuda.LAUNCHES)
+        per_frame = np.stack([p(f).cpu().numpy() for f in tail])
+        grids[name] = per_frame
+        check_grids(f"bench_path {name}", {"single": single[None],
+                                           "transfer_batch_4": batched,
+                                           "per_frame": per_frame},
+                    (grid_cfg.cells_h, grid_cfg.cells_w))
+        check_batch_invariant(
+            f"bench_path {name}",
+            single_vs_per_frame=float((single == per_frame[0]).mean()),
+            transfer_batch_4_vs_per_frame=float((batched
+                                                 == per_frame).mean()))
+    # one single frame and three 4-frame transfer batches: 4 forwards
+    want_fused = 16 * 4
+    got = launches["enet_fused_w16"]
+    if (got["fused_bottleneck"] != want_fused
+            or sum(got.values()) != want_fused):
+        fail(f"bench_path enet_fused_w16 launched {got}; expected "
+             f"{want_fused} fused_bottleneck launches and nothing else")
+    if any(launches["enet_w16"].values()):
+        fail(f"bench_path enet_w16 launched kernels: {launches['enet_w16']}")
+
+    # -- fused vs plain trunk (bf16), card vs CPU (f32) -----------------------
+    seg = {name: np.stack([p.segment_and_grid(f)[1].cpu().numpy()
+                           for f in frames[:4]]) for name, p in pipes.items()}
+    label_agree = float((seg["enet_w16"] == seg["enet_fused_w16"]).mean())
+    cell_agree = float((grids["enet_w16"] == grids["enet_fused_w16"]).mean())
+    if label_agree < AGREE_BF16 or cell_agree < AGREE_BF16:
+        fail(f"bench_path enet_fused_w16 vs enet_w16 (bf16): labels "
+             f"{label_agree}, cells {cell_agree} agree; budget {AGREE_BF16}")
+    card32, cpu32 = (pipeline("enet_w16", "float32", d)
+                     for d in ("cuda", "cpu"))
+    f32_labels = float(np.mean([
+        (card32.segment_and_grid(f)[1].cpu().numpy()
+         == cpu32.segment_and_grid(f)[1].numpy()).mean()
+        for f in frames[:2]]))
+    if f32_labels < AGREE_F32:
+        fail(f"bench_path enet_w16 f32 labels on the card vs the CPU agree "
+             f"on {f32_labels}; budget {AGREE_F32}")
+    f32 = check_f32_card_vs_cpu(
+        "bench_path enet_w16", card32.engine, cpu32.engine,
+        resize_linear(frames[0], (cfg.input_height, cfg.input_width)))
+    del card32, cpu32
+
+    # -- speed ----------------------------------------------------------------
+    def latency_ms(p):
+        out = []
+        for i in range(BENCH_LATENCY_FRAMES):
+            s = time.perf_counter()
+            p(frames[i]).cpu()
+            out.append(1e3 * (time.perf_counter() - s))
+        return float(np.percentile(out, 50))
+
+    def stream_fps(p, k):
+        s = time.perf_counter()
+        n = sum(1 for _ in p.stream(iter(frames), depth=16, sync_chunk=16,
+                                    transfer_batch=k))
+        return n / (time.perf_counter() - s)
+
+    runs = [(name, k) for name in names for k in (4, 1)]
+    for name, k in runs:                       # the warm pass
+        stream_fps(pipes[name], k)
+    fps = {run: [] for run in runs}
+    for r in range(BENCH_PASSES):
+        for run in (runs if r % 2 == 0 else runs[::-1]):
+            fps[run].append(stream_fps(pipes[run[0]], run[1]))
+    speed = {}
+    for name, p in pipes.items():
+        prep = []
+        for f in frames[:BENCH_LATENCY_FRAMES]:
+            s = time.perf_counter()
+            packed = p._prep_host(f)
+            prep.append(1e3 * (time.perf_counter() - s))
+        h2d, d2h = [], []
+        for _ in range(BENCH_LATENCY_FRAMES):
+            torch.cuda.synchronize()
+            s = time.perf_counter()
+            x = frames_to_device(packed[None], dev)
+            torch.cuda.synchronize()
+            h2d.append(1e3 * (time.perf_counter() - s))
+            g = p._program(x)[0]
+            torch.cuda.synchronize()
+            s = time.perf_counter()
+            g.cpu()
+            d2h.append(1e3 * (time.perf_counter() - s))
+        speed[name] = {
+            "latency_p50_ms": latency_ms(p),
+            "fps_transfer_batch_4": {"median": float(np.median(
+                fps[(name, 4)])), "passes": fps[(name, 4)]},
+            "fps_transfer_batch_1": {"median": float(np.median(
+                fps[(name, 1)])), "passes": fps[(name, 1)]},
+            "host_prep_ms_p50": float(np.percentile(prep, 50)),
+            "h2d_copy_ms_p50": float(np.percentile(h2d, 50)),
+            "d2h_copy_ms_p50": float(np.percentile(d2h, 50)),
+            "packed_bytes": int(packed.nbytes),
+            **device_busy(p, frames[:PROFILE_FRAMES]),
+        }
+    emit("bench_path", seconds=round(time.perf_counter() - t, 3),
+         setup_seconds=round(setup_s, 3), camera_hw=list(FRAME_HW),
+         model_hw=[cfg.input_height, cfg.input_width], launches=launches,
+         label_agree_bf16=label_agree, cell_agree_bf16=cell_agree,
+         f32_card_vs_cpu_labels_i420=f32_labels, **f32, speed=speed,
+         nvidia_smi=smi)
+    return launches["enet_fused_w16"]
+
+
+def probe_phase(lib, dev) -> list:
+    """The probe script's run through the two kernels, then each kernel at
+    the probes' shapes against its plain version, timed; returns the
+    kernel line's three entries."""
+    import torch
+
+    from bugcar_image_segmentation_tpu_torch.ops import cuda as kcuda
+    from bugcar_image_segmentation_tpu_torch.ops.cuda import probes
+
+    t = time.perf_counter()
+    script = load_script("torch_probe_strided")
+    x32 = script.probe_input(dev)
+    script.run_probes(dev)                       # builds nothing new; warm
+    torch.cuda.synchronize()
+    kcuda.reset_launches()
+    results = script.run_probes(dev)
+    torch.cuda.synchronize()
+    launches = dict(kcuda.LAUNCHES)
+    wrong = [name for name, ok in results if not ok]
+    if wrong:
+        fail(f"torch_probe_strided: WRONG RESULT for {wrong}")
+    extra = {k: v for k, v in launches.items() if k not in PROBE_LAUNCHES}
+    if ({k: launches[k] for k in PROBE_LAUNCHES} != PROBE_LAUNCHES
+            or any(extra.values())):
+        fail(f"the probe run launched {launches}; expected {PROBE_LAUNCHES}")
+
+    # (kernel, dtype, strides or None for the halo, launches per run)
+    cases = [("strided_gather", torch.float32, (2, 1), 2),
+             ("strided_gather", torch.float32, (1, 2), 2),
+             ("strided_gather_bf16", torch.bfloat16, (2, 1), 1),
+             ("strided_gather_bf16", torch.bfloat16, (1, 2), 2),
+             ("strided_gather_bf16", torch.bfloat16, (2, 2), 1),
+             ("halo_add", torch.float32, None, 1)]
+    recs = []
+    for name, dtype, strides, per_run in cases:
+        x = x32.to(dtype)
+        if strides is None:
+            got, ref = probes.halo_add(x), probes.halo_add_reference(x)
+            out = torch.empty_like(x)
+            raw = probes.halo_args(x, out)
+            bare = lib.bugcar_halo_add
+
+            def library(x=x):
+                xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
+                return xp[:x.shape[0], :x.shape[1]] + xp[2:, 2:]
+            wrapper = (lambda x=x: probes.halo_add(x))
+            plain = (lambda x=x: probes.halo_add_reference(x))
+            nbytes = 2 * x.numel() * x.element_size()
+        else:
+            sr, sw = strides
+            got = probes.strided_gather(x, sr, sw)
+            ref = probes.strided_gather_reference(x, sr, sw)
+            out = torch.empty_like(ref)
+            raw = probes.gather_args(x, out, sr, sw)
+            bare = lib.bugcar_strided_gather
+            library = (lambda x=x, sr=sr, sw=sw: x[::sr, ::sw].contiguous())
+            wrapper = (lambda x=x, sr=sr, sw=sw:
+                       probes.strided_gather(x, sr, sw))
+            plain = (lambda x=x, sr=sr, sw=sw:
+                     probes.strided_gather_reference(x, sr, sw))
+            # the selected elements read once, the output written once
+            nbytes = 2 * ref.numel() * ref.element_size()
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            fail(f"{name} {strides} {dtype}: the kernel differs from its "
+                 f"plain version")
+        rec = {"kernel": name, "dtype": str(dtype).split(".")[-1],
+               "strides": list(strides) if strides else None,
+               "shape": list(x.shape), "launches_per_run": per_run,
+               "max_abs_err": float((got.float() - ref.float()).abs().max()),
+               # device time: bare launches, no Python checks
+               "ms": cuda_ms(lambda raw=raw, bare=bare: bare(*raw), 1000),
+               "wrapper_ms": cuda_ms(wrapper, 500),
+               "plain_ms": cuda_ms(plain, 500),
+               "library_ms": cuda_ms(library, 500),
+               "bound_ms": 1e3 * nbytes / MEM_RATE, "bound_by": "bytes"}
+        recs.append(rec)
+        print(json.dumps({"phase": "probe_case", **rec}), flush=True)
+    emit("probe_kernels", seconds=round(time.perf_counter() - t, 3),
+         probes={name: ok for name, ok in results}, launches=launches)
+
+    replaces = {"strided_gather": "scripts/probe_mosaic.py:30",
+                "strided_gather_bf16": "scripts/probe_mosaic.py:81",
+                "halo_add": "scripts/probe_mosaic.py:111"}
+    entries = []
+    for name, line in replaces.items():
+        mine = [r for r in recs if r["kernel"] == name]
+        runs = sum(r["launches_per_run"] for r in mine)
+
+        def mean(key, mine=mine, runs=runs):
+            # per launch, weighted as the probe run launches each shape
+            return sum(r[key] * r["launches_per_run"] for r in mine) / runs
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "bugcar_image_segmentation_tpu_torch/csrc/"
+                      "strided_probes.cu",
+            "replaces": line, "launches": launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "ms": mean("ms"), "plain_ms": mean("plain_ms"),
+            "bound_ms": mean("bound_ms"), "bound_by": "bytes",
+            "library_ms": mean("library_ms")})
+    return entries
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(DEADLINE_S, exit=True)
     import torch
@@ -956,16 +1285,20 @@ def main() -> int:
          nvcc_seconds=kbuild.build_seconds, ptxas=ptxas)
 
     enet_entry = enet_phases(lib, smi, dev)
+    bench_launches = bench_phase(smi, dev)
+    # fused_bottleneck runs on two paths: ENet's ("path") and bench.py's
+    enet_entry["launches"] += bench_launches["fused_bottleneck"]
     att = attention_phase(lib, 1e6 * clock_mhz)
     seg_launches = segformer_phase(smi)
     sep = sepconv_phase(lib)
     xc_launches = xception_phase(smi)
+    probe_entries = probe_phase(lib, dev)
 
     # -- result --------------------------------------------------------------
     kernels = ([enet_entry] + [attention_entry(n, att, seg_launches)
                                for n in ("flash_attention",
                                          "flash_attention_t")]
-               + [sepconv_entry(sep, xc_launches)])
+               + [sepconv_entry(sep, xc_launches)] + probe_entries)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -172,4 +172,5 @@ def test_kernel_sources_build_lazily():
     from bugcar_image_segmentation_tpu_torch.ops.cuda import build
     assert build._lib is None or torch.cuda.is_available()
     assert sorted(p.name for p in build.SOURCE_DIR.glob("*.cu")) == [
-        "flash_attention.cu", "fused_bottleneck.cu", "fused_sepconv.cu"]
+        "flash_attention.cu", "fused_bottleneck.cu", "fused_sepconv.cu",
+        "strided_probes.cu"]

@@ -1,8 +1,9 @@
 """The port's CUDA kernels on the card, against their plain PyTorch versions
-(the ENet bottleneck, flash attention, the fused separable conv), the
-SegFormer and Xception engines on the card against their plain versions,
-and batch invariance (a frame's result alone equals its result in a
-batch).
+(the ENet bottleneck, flash attention, the fused separable conv, the
+Mosaic probes' strided gather and halo add), the SegFormer and Xception
+engines on the card against their plain versions, batch invariance (a
+frame's result alone equals its result in a batch), and bench.py's path
+(``enet_w16``, host resize, i420) on the card.
 
 Needs an NVIDIA card (Hopper, sm_90a) and nvcc; every test here skips
 without a card.  This file imports neither JAX nor the JAX package, so it
@@ -389,3 +390,120 @@ def test_xception_engine_on_card_matches_plain(dev):
         else:
             agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
             assert agree >= 0.98, agree
+
+
+# -- the Mosaic probes' kernels ---------------------------------------------
+#
+# Copies and one add: the kernel must equal the plain version bit for bit.
+
+PROBE_SHAPES = [(16, 64, 128), (5, 7, 3), (3, 5, 8), (17, 33, 20),
+                (1, 1, 2), (64, 128, 256)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", PROBE_SHAPES,
+                         ids=["x".join(map(str, s)) for s in PROBE_SHAPES])
+def test_probe_kernels_match_plain(dev, shape, dtype):
+    from bugcar_image_segmentation_tpu_torch.ops.cuda import probes
+    x = torch.as_tensor(np.random.default_rng(3).standard_normal(shape)
+                        .astype(np.float32), device=dev).to(dtype)
+    key = probes.launch_key(x)
+    for sr, sw in probes.STRIDES:
+        before = kcuda.LAUNCHES[key]
+        got = probes.strided_gather(x, sr, sw)
+        torch.cuda.synchronize()
+        assert kcuda.LAUNCHES[key] == before + 1
+        assert torch.equal(got, probes.strided_gather_reference(x, sr, sw))
+    before = kcuda.LAUNCHES["halo_add"]
+    got = probes.halo_add(x)
+    torch.cuda.synchronize()
+    assert kcuda.LAUNCHES["halo_add"] == before + 1
+    assert torch.equal(got, probes.halo_add_reference(x))
+
+
+@pytest.mark.parametrize("bad", ["noncontig", "half", "2d", "stride"])
+def test_probe_wrappers_reject(dev, bad):
+    from bugcar_image_segmentation_tpu_torch.ops.cuda import probes
+    x = torch.zeros((8, 16, 32), device=dev)
+    sr = 2
+    if bad == "noncontig":
+        x = x.transpose(0, 1)
+    elif bad == "half":
+        x = x.half()
+    elif bad == "2d":
+        x = x[0]
+    else:
+        sr = 3
+    with pytest.raises(ValueError):
+        probes.strided_gather(x, sr, 1)
+    if bad != "stride":
+        with pytest.raises(ValueError):
+            probes.halo_add(x)
+
+
+def test_probe_script_on_card(dev):
+    """scripts/torch_probe_strided.py's probes, through the kernels: all
+    nine OK, four f32 gathers, four bf16 gathers and one halo add."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "scripts"))
+    import torch_probe_strided as script
+    kcuda.reset_launches()
+    results = script.run_probes(dev)
+    assert [ok for _, ok in results] == [True] * 9, results
+    assert {k: kcuda.LAUNCHES[k] for k in ("strided_gather",
+                                           "strided_gather_bf16",
+                                           "halo_add")} == {
+        "strided_gather": 4, "strided_gather_bf16": 4, "halo_add": 1}
+
+
+# -- bench.py's path ----------------------------------------------------------
+
+def test_bench_path_i420_against_bgr_on_card(dev):
+    """``enet_w16`` at 512x256 from 640x480 frames with ``host_resize``:
+    the i420 transport's grids equal the bgr transport's fed the I420
+    round trip of the same resized frames (the device conversion is the
+    only difference, and it equals the CPU's), in bf16 on the card; the
+    i420 path's labels on the card agree with a float32 CPU run of the
+    port on >= 0.999 of the pixels (TF32 off); and
+    ``stream(transfer_batch=4)`` over 10 frames equals the per-frame
+    grids."""
+    import bugcar_image_segmentation_tpu_torch as port
+    from bugcar_image_segmentation_tpu_torch import synthetic
+    from bugcar_image_segmentation_tpu_torch.calibration import \
+        toy_calibration
+    from bugcar_image_segmentation_tpu_torch.convert.flax_enet import \
+        random_enet_variables
+    from bugcar_image_segmentation_tpu_torch.ops import yuv
+    from bugcar_image_segmentation_tpu_torch.ops.host_resize import \
+        resize_linear
+    variables = random_enet_variables(0)
+    frames = [f for f, _, _ in synthetic.video(seed=1, num_frames=10,
+                                               shape=(480, 640))]
+    cal = toy_calibration((256, 512))
+    grid = port.GridConfig(8.0, 8.0, 0.1)
+
+    def pipe(dtype, device, transport):
+        eng = port.build_engine("enet_w16", port.ModelConfig(dtype=dtype),
+                                variables=variables, device=device)
+        return port.Pipeline(eng, cal, grid, host_resize=True,
+                             transport=transport)
+
+    i420 = pipe("bfloat16", dev, "i420")
+    bgr = pipe("bfloat16", dev, "bgr")
+    got = np.stack([i420(f).cpu().numpy() for f in frames])
+    round_trip = [yuv.i420_to_bgr(torch.as_tensor(yuv.bgr_to_i420_host(
+        resize_linear(f, (256, 512)))), (256, 512)).numpy() for f in frames]
+    np.testing.assert_array_equal(
+        got, np.stack([bgr(f).cpu().numpy() for f in round_trip]))
+    np.testing.assert_array_equal(
+        got, np.stack(list(i420.stream(iter(frames), depth=16,
+                                       sync_chunk=16, transfer_batch=4))))
+    card32 = pipe("float32", dev, "i420")
+    cpu32 = pipe("float32", "cpu", "i420")
+    agree = np.mean([
+        float((card32.segment_and_grid(f)[1].cpu()
+               == cpu32.segment_and_grid(f)[1]).float().mean())
+        for f in frames[:2]])
+    assert agree >= 0.999, agree      # chip_smoke.py's AGREE_F32

@@ -46,7 +46,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "cv2", "msgpack",
 SLICE_MODULES = ("ops.cuda.attention", "models.segformer",
                  "convert.flax_segformer", "ops.cuda.sepconv",
                  "models.layers", "models.deeplab", "models.xception",
-                 "convert.flax_xception")
+                 "convert.flax_xception", "ops.yuv", "ops.host_resize",
+                 "utils.msgpack", "utils.checkpoint", "ops.cuda.probes")
 GRID = (4.0, 4.0, 0.2)
 MODEL = dict(input_width=64, input_height=32, dtype="float32")
 
@@ -119,10 +120,15 @@ def test_unported_options_raise(pair):
     eng = port.build_engine("enet", port.ModelConfig(**MODEL), variables=v,
                             device="cpu")
     grid = port.GridConfig(*GRID)
-    for kw in (dict(transport="i420"), dict(host_resize=True),
-               dict(use_clahe=True), dict(contour_filter=True)):
+    for kw in (dict(use_clahe=True), dict(contour_filter=True)):
         with pytest.raises(NotImplementedError, match="not ported"):
             port.Pipeline(eng, cal, grid, **kw)
+    # the i420 transport and the host resize are ported (they are the
+    # bench path; tests/test_torch_bench_path.py); i420 needs the host
+    # resize, as in the JAX package
+    with pytest.raises(ValueError, match="requires host_resize"):
+        port.Pipeline(eng, cal, grid, transport="i420")
+    port.Pipeline(eng, cal, grid, host_resize=True, transport="i420")
     with pytest.raises(NotImplementedError, match="not ported"):
         port.Pipeline(eng, dataclasses.replace(cal, laserscan=True), grid)
     with pytest.raises(ValueError, match="unknown transport"):
