@@ -62,12 +62,14 @@ def launch_args(name: str, q: torch.Tensor, k: torch.Tensor,
     """Check a CUDA launch's operands and marshal them for the C launcher
     ``bugcar_<name>`` (on the current stream)."""
     channel_major = name == "flash_attention_t"
-    _need(q.device.type == "cuda", name,
-          f"q must be a CUDA tensor, got {q.device}")
+    # the messages are formatted only when a check fails (this runs on
+    # every launch)
+    if q.device.type != "cuda":
+        _need(False, name, f"q must be a CUDA tensor, got {q.device}")
     _need(q.dim() == 4 and k.dim() == 4 and v.dim() == 4, name,
           "q, k, v must be 4-D")
-    _need(q.dtype in (torch.float32, torch.bfloat16), name,
-          f"q must be float32 or bfloat16, got {q.dtype}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        _need(False, name, f"q must be float32 or bfloat16, got {q.dtype}")
     b, h = q.shape[0], q.shape[1]
     if channel_major:
         d, nq, nkv = q.shape[2], q.shape[3], k.shape[3]
@@ -75,16 +77,20 @@ def launch_args(name: str, q: torch.Tensor, k: torch.Tensor,
     else:
         nq, d, nkv = q.shape[2], q.shape[3], k.shape[2]
         kv_shape = (b, h, nkv, d)
-    _need(d in HEAD_DIMS, name,
-          f"head dim {d} is not one the kernel takes {HEAD_DIMS}")
+    if d not in HEAD_DIMS:
+        _need(False, name,
+              f"head dim {d} is not one the kernel takes {HEAD_DIMS}")
     _need(nq >= 1 and nkv >= 1, name, "empty query or key sequence")
-    _need(1 <= b * h <= 65535, name, f"batch*heads {b * h} out of range")
+    if not 1 <= b * h <= 65535:
+        _need(False, name, f"batch*heads {b * h} out of range")
     for t, what in ((k, "k"), (v, "v")):
-        _need(tuple(t.shape) == kv_shape, name,
-              f"{what} must have shape {kv_shape}, got {tuple(t.shape)}")
+        if t.shape != kv_shape:
+            _need(False, name, f"{what} must have shape {kv_shape}, got "
+                               f"{tuple(t.shape)}")
     for t, what in ((q, "q"), (k, "k"), (v, "v"), (out, "out")):
-        _need(t.device == q.device and t.dtype == q.dtype, name,
-              f"{what} must be a {q.dtype} tensor on {q.device}")
+        if t.device != q.device or t.dtype != q.dtype:
+            _need(False, name, f"{what} must be a {q.dtype} tensor on "
+                               f"{q.device}")
         _need(t.is_contiguous(), name, f"{what} must be contiguous")
     _need(out.shape == q.shape, name, "out must have q's shape")
     stream = torch.cuda.current_stream(q.device).cuda_stream

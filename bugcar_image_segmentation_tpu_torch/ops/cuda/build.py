@@ -1,7 +1,7 @@
 """Build the port's CUDA kernels with plain nvcc and load them with ctypes.
 
-Every ``csrc/*.cu`` source is compiled by its own ``nvcc`` process, all
-started together, and the objects are linked by one more ``nvcc`` call
+Every ``csrc/*.cu`` source (with the ``csrc/*.cuh`` headers they include)
+is compiled by its own ``nvcc`` process, all started together, and the objects are linked by one more ``nvcc`` call
 into one shared library with a C interface (no PyTorch headers, so the
 build takes seconds), at first use, into ``build/kernels/`` beside the
 package.  The library's name carries a hash of the sources and flags: an
@@ -61,7 +61,7 @@ def _library_path() -> Path:
     if not sources:
         raise RuntimeError(f"no CUDA sources in {SOURCE_DIR}")
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sources + sorted(SOURCE_DIR.glob("*.cuh")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"libbugcar_kernels-{digest.hexdigest()[:16]}.so"
@@ -133,8 +133,10 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = [_P] * 4 + [_I] * 4 + [ctypes.c_float, _I, _P]
             fn.restype = _I
-        lib.bugcar_fused_sepconv.argtypes = [_P] * 8 + [_I] * 8 + [_P]
+        lib.bugcar_fused_sepconv.argtypes = [_P] * 8 + [_I] * 11 + [_P]
         lib.bugcar_fused_sepconv.restype = _I
+        lib.bugcar_fused_sepconv_max_clusters.argtypes = [_I, _I, _I]
+        lib.bugcar_fused_sepconv_max_clusters.restype = _I
         lib.bugcar_strided_gather.argtypes = [_P, _P] + [_I] * 6 + [_P]
         lib.bugcar_strided_gather.restype = _I
         lib.bugcar_halo_add.argtypes = [_P, _P] + [_I] * 4 + [_P]

@@ -43,7 +43,10 @@ phase with its elapsed seconds:
    Xception path at 1024x512 (and the two stride-2 shapes the path leaves
    to the plain convs), N = 1 and 4, on seeded data, held against
    ``sepconv_reference`` in bfloat16 and in float32 (TF32 off), and timed
-   at N = 1 in bf16 with CUDA events beside the plain version.
+   at N = 1 in bf16 with CUDA events beside the plain version; each
+   record carries its launch plan and ``phase_us``, the time each phase
+   of the launch adds (window load, depthwise, cluster exchange,
+   pointwise, epilogue; ``scripts/torch_sepconv_split.py``'s variants).
 8. ``xception_path`` — ``build_engine("deeplab_xception_fs")`` (DeepLabV3+
    on Xception-65 at 1024x512, 15 classes, bf16, seeded weights) and
    ``Pipeline``: ``pipe(frame)``, ``pipe.stream(frames, depth=2)``, a
@@ -747,9 +750,12 @@ def sepconv_phase(lib) -> dict:
     import numpy as np
     import torch
 
+    from bugcar_image_segmentation_tpu_torch.ops.cuda import build as kbuild
     from bugcar_image_segmentation_tpu_torch.ops.cuda import sepconv as sc
 
     t = time.perf_counter()
+    splitter = load_script("torch_sepconv_split")
+    variants = splitter.build(kbuild._nvcc())   # one nvcc per variant, together
     records = {}
     worst = 0.0
     for i, (name, h, w, c, f, stride, act, per_frame) in enumerate(
@@ -800,6 +806,10 @@ def sepconv_phase(lib) -> dict:
             rec["bound_ms"], rec["bound_by"] = sepconv_bound(
                 1, h, w, c, f, stride, dt)
             rec["library_ms"] = None
+            pl = sc.plan(h, w, c, f, stride)
+            rec["plan"] = {"tile_rows": pl.tile_rows, "cluster": pl.cluster,
+                           "stages": pl.stages}
+            rec["phase_us"] = splitter.split(variants, raw)["phase_us"]
         records[name] = rec
         print(json.dumps({"phase": "sepconv_case", **rec}), flush=True)
     on_path = [r for r in records.values() if r["launches_per_frame"]]

@@ -141,9 +141,11 @@ def _xception_stages(eng, pipe, stage, frame):
     return stage("download", lambda: grid.cpu())
 
 
-# Device-time names of the port's hand-written kernels, by path.
-KERNEL_NAMES = {"segformer_b0": "flash_attention_kernel",
-                "deeplab_xception": "fused_sepconv_kernel"}
+# Device-time names of the port's hand-written kernels, by path (the
+# attention source's tensor-core and SIMT kernels; the sepconv's bf16 and
+# f32 kernels).
+KERNEL_NAMES = {"segformer_b0": ("flash_attention_mma", "flash_attention_simt"),
+                "deeplab_xception": ("sepconv_bf16", "sepconv_f32")}
 
 
 def main() -> int:
@@ -247,8 +249,9 @@ def main() -> int:
             k[1] += 1
         busy_us = _busy_us([(e.time_range.start, e.time_range.end)
                             for e in device])
-        kernel_us = sum(v[0] for k, v in kernels.items()
-                        if KERNEL_NAMES.get(args.engine, "-") in k)
+        per_kernel = {name: sum(v[0] for k, v in kernels.items()
+                                if name + "<" in k)
+                      for name in KERNEL_NAMES.get(args.engine, ())}
         top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
         print(json.dumps({
             "engine": label, "measure": "profile", "frames": n,
@@ -257,7 +260,9 @@ def main() -> int:
             "device_idle_share": 1.0 - busy_us / wall_us,
             "device_events_per_frame": len(device) / n,
             "kernel": KERNEL_NAMES.get(args.engine),
-            "kernel_ms_per_frame": kernel_us / n / 1e3,
+            "kernel_ms_per_frame": sum(per_kernel.values()) / n / 1e3,
+            "kernels_ms_per_frame": {k: v / n / 1e3
+                                     for k, v in per_kernel.items()},
             "top_device_time": [
                 {"name": k[:90], "us_per_frame": v[0] / n,
                  "count_per_frame": v[1] / n} for k, v in top],

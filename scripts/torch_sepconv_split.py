@@ -5,13 +5,18 @@ NVIDIA GPU.
     python3 scripts/torch_sepconv_split.py
 
 from the root of a checkout, on the GPU host.  The card's profilers that
-count stalls do not run there, so this script builds three variants of
-``csrc/fused_sepconv.cu`` with plain nvcc (into ``build/sepconv_split/``):
-the kernel as it is, the kernel with its pointwise phase switched off, and
-the kernel with its depthwise phase switched off; it times each with CUDA
-events (bare launches through the C launcher, bf16, N = 1, seeded data) at
-the Xception path's site shapes at 1024x512, and prints one JSON line per
-shape with the three times in microseconds, then the nvidia-smi
+count stalls do not run there, so this script builds variants of
+``csrc/fused_sepconv.cu`` with plain nvcc (into ``build/sepconv_split/``),
+each with one phase of the bf16 kernel switched off: the input window's
+cp.async loads, the depthwise arithmetic (and with it y1's stores), the
+cluster exchange (y1 stored to this CTA only), the pointwise phase
+(weight ring, products and epilogue) and the epilogue's stores alone.  It
+times each with CUDA events (bare launches through the C launcher, bf16,
+N = 1, seeded data, the launch plan of ``ops/cuda/sepconv.plan``) at the
+Xception path's site shapes at 1024x512 and prints one JSON line per
+shape: ``kernel_us`` and ``phase_us``, the time each phase adds (the
+kernel's time less the variant's; phases overlap, so these are the
+exposed shares and need not sum to the total), then the nvidia-smi
 name/power-limit line.  A variant's output is wrong by design; only its
 time is read.  Exits non-zero without a CUDA device.
 """
@@ -30,13 +35,28 @@ sys.path.insert(0, REPO)
 SOURCE = os.path.join(REPO, "bugcar_image_segmentation_tpu_torch", "csrc",
                       "fused_sepconv.cu")
 OUT = os.path.join(REPO, "build", "sepconv_split")
-# name -> (text of the source, its replacement)
+# variant -> [(text of the source, its replacement), ...]; the phase a
+# variant switches off is the difference between the kernel and it.
 VARIANTS = {
-    "kernel": None,
-    "no_pointwise": ("const int steps = (ft1 - ft0) * nk;",
-                     "const int steps = 0;"),
-    "no_depthwise": ("for (int c0 = 0; c0 < ldy - 8; c0 += kChunk) {",
-                     "for (int c0 = 0; c0 < 0; c0 += kChunk) {"),
+    "kernel": [],
+    "window_load": [
+        ("        cp_async16(wdst + cv * plane + (wy * wc + win_slot(wx,"
+         " stride)) * 16,",
+         "        if (act_out < 0) cp_async16(wdst + cv * plane + (wy * wc +"
+         " win_slot(wx, stride)) * 16,")],
+    "depthwise": [("    if (cv < kDwChunk / 8 && c0 + 8 * cv < c_hi) {",
+                   "    if (act_out < 0 && cv < kDwChunk / 8 && c0 + 8 * cv <"
+                   " c_hi) {")],
+    "cluster_exchange": [
+        ("          *reinterpret_cast<uint4*>(cluster.map_shared_rank(dst, r))"
+         " = packed;",
+         "          *reinterpret_cast<uint4*>(dst) = packed;")],
+    "pointwise": [("  const int steps = (ft_hi - ft_lo + 1) / 2 * nk;",
+                   "  const int steps = act_out < 0 ? (ft_hi - ft_lo + 1) / 2"
+                   " * nk : 0;")],
+    "epilogue": [("      if (oy >= pl.ho || ox >= pl.wo || fi >= f_end) continue;",
+                  "      if (oy >= pl.ho || ox >= pl.wo || fi >= f_end ||"
+                  " act_out >= 0) continue;")],
 }
 # (site, H, W, C, F, stride, act_out): the path's shapes at 1024x512
 SITES = [("block1.sep0", 256, 512, 64, 128, 1, True),
@@ -49,25 +69,28 @@ SITES = [("block1.sep0", 256, 512, 64, 128, 1, True),
          ("middle", 32, 64, 728, 728, 1, True)]
 
 
-def build(nvcc: str):
-    """The variants' libraries, compiled in parallel."""
+def build(nvcc: str, variants=VARIANTS) -> dict:
+    """The variants' libraries (name -> ctypes library), compiled in
+    parallel."""
+    from bugcar_image_segmentation_tpu_torch.ops.cuda import build as kbuild
     os.makedirs(OUT, exist_ok=True)
     text = open(SOURCE).read()
     procs = []
-    for name, sub in VARIANTS.items():
+    for name, subs in variants.items():
         src = text
-        if sub is not None:
-            if sub[0] not in src:
+        for old, new in subs:
+            if src.count(old) != 1:
                 raise RuntimeError(f"{name}: the source no longer has "
-                                   f"{sub[0]!r}")
-            src = src.replace(sub[0], sub[1])
-        cu, so = os.path.join(OUT, f"{name}.cu"), os.path.join(OUT,
-                                                                f"{name}.so")
+                                   f"{old!r} exactly once")
+            src = src.replace(old, new)
+        cu, so = (os.path.join(OUT, f"{name}.cu"),
+                  os.path.join(OUT, f"{name}.so"))
         with open(cu, "w") as f:
             f.write(src)
+        flags = [a for a in kbuild.NVCC_FLAGS if a not in ("-Xptxas", "-v")]
         procs.append((name, so, subprocess.Popen(
-            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-             "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", so, cu],
+            [nvcc, *flags, "-I", os.path.dirname(SOURCE), "-shared", "-o", so,
+             cu],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     libs = {}
     for name, so, proc in procs:
@@ -76,11 +99,39 @@ def build(nvcc: str):
             raise RuntimeError(f"nvcc failed for {name}:\n{out[-3000:]}")
         lib = ctypes.CDLL(so)
         lib.bugcar_fused_sepconv.argtypes = ([ctypes.c_void_p] * 8
-                                             + [ctypes.c_int] * 8
+                                             + [ctypes.c_int] * 11
                                              + [ctypes.c_void_p])
         lib.bugcar_fused_sepconv.restype = ctypes.c_int
         libs[name] = lib
     return libs
+
+
+def split(libs: dict, raw: tuple, iters: int = 100) -> dict:
+    """``kernel_us`` and ``phase_us`` of one launch (its C arguments)."""
+    import torch
+
+    def us(fn):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        stop.record()
+        stop.synchronize()
+        return 1e3 * start.elapsed_time(stop) / iters
+
+    times = {}
+    for name, lib in libs.items():
+        err = lib.bugcar_fused_sepconv(*raw)
+        if err:
+            raise RuntimeError(f"{name}: CUDA error {err}")
+        times[name] = us(lambda lib=lib: lib.bugcar_fused_sepconv(*raw))
+    return {"kernel_us": times["kernel"],
+            "phase_us": {k: times["kernel"] - v for k, v in times.items()
+                         if k != "kernel"}}
 
 
 def main() -> int:
@@ -97,19 +148,6 @@ def main() -> int:
         timeout=60, check=True).stdout.strip().splitlines()[0]
     libs = build(kbuild._nvcc())
 
-    def us(fn, iters=100):
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        stop.record()
-        stop.synchronize()
-        return 1e3 * start.elapsed_time(stop) / iters
-
     gen = torch.Generator(device="cuda").manual_seed(0)
     for site, h, w, c, f, stride, act in SITES:
         def rnd(*shape):
@@ -122,15 +160,13 @@ def main() -> int:
         out = torch.empty(1, h // stride, w // stride, f, device="cuda",
                           dtype=torch.bfloat16)
         raw = sc.launch_args(x, out, *args, strides=stride, act_out=act)
-        for name, lib in libs.items():
-            err = lib.bugcar_fused_sepconv(*raw)
-            if err:
-                raise RuntimeError(f"{name} at {site}: CUDA error {err}")
+        pl = sc.plan(h, w, c, f, stride)
         print(json.dumps({
             "site": site, "shape": [h, w, c, f], "stride": stride,
-            **{f"{name}_us": us(lambda lib=lib: lib.bugcar_fused_sepconv(
-                *raw)) for name, lib in libs.items()},
-            "nvidia_smi": smi}), flush=True)
+            "plan": {"tile_rows": pl.tile_rows, "cluster": pl.cluster,
+                     "stages": pl.stages, "ctas": pl.cluster * pl.tiles_h
+                     * pl.tiles_w},
+            **split(libs, raw), "nvidia_smi": smi}), flush=True)
     print(smi, flush=True)
     return 0
 

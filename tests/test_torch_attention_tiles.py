@@ -1,0 +1,133 @@
+"""The arithmetic of the tensor-core flash attention (``csrc/flash_attention.cu``,
+``flash_attention_mma``: bf16, token-major), emulated in torch on the CPU.
+
+The kernel itself runs only on the card (tests/test_torch_cuda.py).  This
+file holds its arithmetic -- 64-key tiles, an online softmax with exp2 on
+``s * scale * log2 e``, P split into bf16 ``P_hi + P_lo`` for two products
+into one f32 accumulator, one cast at the end -- against the plain version
+(``attention_reference``) under chip_smoke.py's bf16 budget, |got - ref| <=
+1e-5 + 2^-7 |ref| (one output ulp: both compute in f32 from the same bf16
+operands and round once), and against the JAX Pallas ``flash_attention``
+in interpret mode at one small shape.  It also pins why P is split: with a
+single bf16 P the same loop breaks the budget wherever the output is near 0.
+"""
+
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from bugcar_image_segmentation_tpu.ops.pallas import attention as jatt
+from bugcar_image_segmentation_tpu_torch.ops.cuda import attention as att
+
+ATOL, RTOL = 1e-5, 2 ** -7      # chip_smoke.py ATTN_TOL["bfloat16"]
+TILE = 64                       # keys per shared-memory tile
+LOG2E = 1.4426950408889634
+
+
+def emulate(q, k, v, split_p=True, p_dtype=torch.bfloat16):
+    """The kernel's arithmetic on bf16 (B, H, N, d) operands: bf16 in, bf16
+    out, f32 in between; ``split_p=False`` multiplies V by a single P of
+    ``p_dtype`` (V cast to it too)."""
+    d = q.shape[-1]
+    c = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32) * torch.tensor(
+        LOG2E, dtype=torch.float32)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    m = torch.full(q.shape[:-1], -math.inf)
+    l = torch.zeros(q.shape[:-1])
+    o = torch.zeros(qf.shape)
+    for j0 in range(0, k.shape[-2], TILE):
+        s = qf @ kf[..., j0:j0 + TILE, :].transpose(-1, -2)   # f32 scores
+        m_new = torch.maximum(m, s.amax(-1) * c)
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s * c - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        vt = vf[..., j0:j0 + TILE, :]
+        if split_p:
+            hi = p.bfloat16().float()
+            lo = (p - hi).bfloat16().float()
+            o = o * alpha[..., None] + hi @ vt + lo @ vt
+        else:
+            o = o * alpha[..., None] + (p.to(p_dtype).float()
+                                        @ vt.to(p_dtype).float())
+        m = m_new
+    return (o / l[..., None]).bfloat16()
+
+
+def _qkv(b, h, nq, nkv, d, seed, scale=1.0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy((rng.standard_normal((b, h, n, d)) * scale)
+                             .astype(np.float32)).bfloat16()
+            for n in (nq, nkv, nkv)]
+
+
+def _over(got, ref):
+    """Share of outputs outside the budget, and the largest |error|."""
+    diff = (got.float() - ref.float()).abs()
+    over = diff > ATOL + RTOL * ref.float().abs()
+    return float(over.float().mean()), float(diff.max())
+
+
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("nkv", [1, 37, 1000])
+@pytest.mark.parametrize("nq", [1, 100])
+def test_emulation_within_budget(nq, nkv, d):
+    """Ragged Nq and Nkv (a last tile of 1, 37 or 40 keys), both head dims."""
+    q, k, v = _qkv(2, 3, nq, nkv, d, seed=nq * 7 + nkv + d)
+    share, err = _over(emulate(q, k, v), att.attention_reference(q, k, v))
+    assert share == 0.0, (share, err)
+
+
+def test_emulation_within_budget_at_segformer_stage():
+    """Stage 0's shape cut to 4096 queries: d 32, Nkv 1024, seeded normal
+    bf16 operands as chip_smoke.py makes them."""
+    q, k, v = _qkv(1, 1, 4096, 1024, 32, seed=0)
+    share, err = _over(emulate(q, k, v), att.attention_reference(q, k, v))
+    assert share == 0.0, (share, err)
+    assert err < 2 ** -9
+
+
+@pytest.mark.parametrize("p_dtype,least", [(torch.bfloat16, 0.05),
+                                           (torch.float16, 0.001)],
+                         ids=["bf16", "fp16"])
+def test_single_p_breaks_the_budget(p_dtype, least):
+    """The reason for the split: the same loop with one P misses the
+    one-ulp budget on a measurable share of stage 0's outputs -- 10.5 %
+    with bf16, 0.3 % even with fp16's 11 bits (V in fp16 too)."""
+    q, k, v = _qkv(1, 1, 4096, 1024, 32, seed=0)
+    share, _ = _over(emulate(q, k, v, split_p=False, p_dtype=p_dtype),
+                     att.attention_reference(q, k, v))
+    assert share > least, share
+
+
+@pytest.mark.parametrize("scale", [8.0, 30.0])
+def test_emulation_extreme_logits(scale):
+    """Scores in the hundreds to thousands: the running max keeps every exp
+    finite, and the result stays within the budget."""
+    q, k, v = _qkv(1, 2, 70, 130, 32, seed=5, scale=math.sqrt(scale))
+    got = emulate(q, k, v)
+    assert bool(torch.isfinite(got.float()).all())
+    share, err = _over(got, att.attention_reference(q, k, v))
+    assert share == 0.0, (share, err)
+
+
+def test_emulation_saturated_softmax():
+    """All the weight on the top half of the keys, values 1: exactly 1."""
+    q = torch.full((1, 1, 64, 32), 30.0).bfloat16()
+    k = torch.cat([torch.full((1, 1, 32, 32), 30.0),
+                   torch.full((1, 1, 32, 32), -30.0)], dim=2).bfloat16()
+    v = torch.ones(1, 1, 64, 32).bfloat16()
+    assert torch.equal(emulate(q, k, v), torch.ones(1, 1, 64, 32).bfloat16())
+
+
+def test_emulation_matches_pallas_interpret():
+    """The JAX package's Pallas kernel (interpret mode, f32 operands that are
+    bf16 values) against the emulation, under the same budget."""
+    q, k, v = _qkv(2, 2, 128, 96, 32, seed=3)
+    want = np.asarray(jatt.flash_attention(
+        *(jnp.asarray(t.float().numpy()) for t in (q, k, v)),
+        block_q=64, block_kv=32))
+    got = emulate(q, k, v).float().numpy()
+    assert (np.abs(got - want) <= ATOL + RTOL * np.abs(want)).all()

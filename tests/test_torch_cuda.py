@@ -329,6 +329,121 @@ def test_sepconv_wrapper_rejects(dev, bad):
     assert kcuda.LAUNCHES["fused_sepconv"] == before
 
 
+# -- the redesigned bf16 kernels: ragged ends, batch invariance, the sites --
+#
+# flash_attention's bf16 token-major path runs on the tensor cores (64 or,
+# for one head with >= 33,792 queries, 128 queries a CTA); fused_sepconv's
+# bf16 path on wgmma (8-row tiles) or mma.sync (4-row tiles, wide C), with
+# the launch plan of ops/cuda/sepconv.plan.
+
+MMA_SHAPES = [(1, 1, 37, 1000, 32), (3, 2, 65, 37, 64), (1, 1, 1, 1, 64),
+              (2, 1, 129, 65, 32), (1, 1, 33850, 130, 32),
+              (1, 2, 1000, 4097, 64)]
+
+
+@pytest.mark.parametrize("shape", MMA_SHAPES,
+                         ids=["-".join(map(str, s)) for s in MMA_SHAPES])
+def test_attention_mma_ragged(dev, shape):
+    """Ragged Nq and Nkv at both head dims and both CTA widths, bf16."""
+    from bugcar_image_segmentation_tpu_torch.ops.cuda import attention as att
+    q, k, v = _qkv(shape, torch.bfloat16, dev, seed=11)
+    before = kcuda.LAUNCHES["flash_attention"]
+    got = att.flash_attention(q, k, v)
+    assert kcuda.LAUNCHES["flash_attention"] == before + 1
+    ref = att.attention_reference(q, k, v)
+    torch.cuda.synchronize()
+    atol, rtol = ATTN_TOL[torch.bfloat16]
+    diff = (got.float() - ref.float()).abs()
+    assert bool((diff <= atol + rtol * ref.float().abs()).all()), \
+        float(diff.max())
+
+
+@pytest.mark.parametrize("shape", [(4, 1, 4096, 1024, 32),
+                                   (4, 1, 33850, 256, 32),
+                                   (4, 2, 1000, 77, 64)],
+                         ids=["64rows", "128rows", "d64"])
+@pytest.mark.parametrize("name", ["flash_attention", "flash_attention_t"])
+def test_attention_frame_alone_equals_frame_in_batch(dev, name, shape):
+    """bf16: a frame's output alone and inside a batch of 4 are bit-equal."""
+    from bugcar_image_segmentation_tpu_torch.ops.cuda import attention as att
+    q, k, v = _qkv(shape, torch.bfloat16, dev, seed=12)
+    if name == "flash_attention_t":
+        q, k, v = (x.transpose(-1, -2).contiguous() for x in (q, k, v))
+    fn = getattr(att, name)
+    batch = fn(q, k, v)
+    alone = fn(*(x[:1].contiguous() for x in (q, k, v)))
+    torch.cuda.synchronize()
+    assert torch.equal(alone, batch[:1])
+
+
+def _smoke_sites():
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.SEP_SITES
+
+
+# chip_smoke.py's ten site shapes (name, H, W, C, F, stride, act_out, _)
+SEP_SITE_IDS = ["block1.sep0", "block1.sep1", "block1.sep2", "block2.sep0",
+                "block2.sep1", "block3.sep0", "block3.sep1", "middle",
+                "block2.sep2", "block3.sep2"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("site", range(len(SEP_SITE_IDS)), ids=SEP_SITE_IDS)
+def test_sepconv_sites_match_plain_and_batch(dev, site, dtype):
+    """Every site shape of the Xception path at 1024x512 (and the two
+    stride-2 extras), N = 1 and 4, against the plain version; the frame
+    alone equals the same frame in the batch of 4, bit for bit; one launch
+    a call."""
+    from bugcar_image_segmentation_tpu_torch.ops.cuda.sepconv import (
+        fused_sepconv, sepconv_reference)
+    name, h, w, c, f, stride, act, _ = _smoke_sites()[site]
+    assert name.split(" ")[0] == SEP_SITE_IDS[site]
+    x, args = _sep_args((4, h, w, c, f, stride, act), dtype, dev, seed=site)
+    atol, rtol = TOL[dtype]
+    outs = {}
+    for n in (1, 4):
+        before = kcuda.LAUNCHES["fused_sepconv"]
+        got = fused_sepconv(x[:n].contiguous(), *args, strides=stride,
+                            act_out=act)
+        assert kcuda.LAUNCHES["fused_sepconv"] == before + 1
+        ref = sepconv_reference(x[:n].contiguous(), *args, strides=stride,
+                                act_out=act)
+        torch.cuda.synchronize()
+        diff = (got.float() - ref.float()).abs()
+        assert bool((diff <= atol + rtol * ref.float().abs()).all()), \
+            float(diff.max())
+        outs[n] = got
+    assert torch.equal(outs[1], outs[4][:1])
+
+
+@pytest.mark.parametrize("stride,f", [(1, 1536), (2, 728)])
+def test_sepconv_wide_channels_bf16(dev, stride, f):
+    """C = 1536: a 64-pixel y1 does not fit beside the window and the ring,
+    so the plan takes 4-row tiles, whose pointwise runs on mma.sync; bf16
+    against the plain version, and the first frame alone equals it in the
+    batch."""
+    from bugcar_image_segmentation_tpu_torch.ops.cuda.sepconv import (
+        fused_sepconv, plan, sepconv_reference)
+    assert plan(16, 32, 1536, f, stride).tile_rows == 4
+    x, args = _sep_args((2, 16, 32, 1536, f, stride, True), torch.bfloat16,
+                        dev, seed=21)
+    got = fused_sepconv(x, *args, strides=stride)
+    alone = fused_sepconv(x[:1].contiguous(), *args, strides=stride)
+    ref = sepconv_reference(x, *args, strides=stride)
+    torch.cuda.synchronize()
+    atol, rtol = TOL[torch.bfloat16]
+    diff = (got.float() - ref.float()).abs()
+    assert bool((diff <= atol + rtol * ref.float().abs()).all()), \
+        float(diff.max())
+    assert torch.equal(alone, got[:1])
+
+
 # -- batch invariance and the Xception engine ------------------------------
 
 @pytest.mark.parametrize("name,hw", [("segformer_b0", (512, 512)),
