@@ -1,6 +1,6 @@
 // PTX helpers shared by the port's tensor-core kernels (sm_90a): shared
-// memory addresses, cp.async, ldmatrix and mma.sync.  Included by the .cu
-// sources beside it; ops/cuda/build.py hashes it with them.
+// memory addresses, cp.async, ldmatrix, ex2 and mma.sync.  Included by the
+// .cu sources beside it; ops/cuda/build.py hashes it with them.
 
 #pragma once
 
@@ -42,6 +42,13 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr)
                : "memory");
+}
+
+// 2^x on the special-function unit (rel. error ~2^-22; 2^-inf = 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // c += a . b, m16n8k16, bf16 operands, f32 accumulator.  Fragments (g =

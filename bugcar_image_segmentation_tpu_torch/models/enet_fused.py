@@ -9,10 +9,11 @@ module's own layers.
 
 Inference only.  The kernels' arguments — squeezed HWIO weights and
 BatchNorm folded in f32 (for ``_w16``, the f32 values of the bf16-rounded
-fold) — are buffers of this module, made from the ENet at construction;
-build it from the float32 ENet (before any cast to bfloat16, after any
-``round_weights_bf16``), as :func:`~.api.build_engine` does, and rebuild
-it after loading new weights.
+fold), and the weights rounded to bf16 once in the bf16 kernel's mma
+fragment order (``pack_weights``) — are buffers of this module, made from
+the ENet at construction; build it from the float32 ENet (before any cast
+to bfloat16, after any ``round_weights_bf16``), as
+:func:`~.api.build_engine` does, and rebuild it after loading new weights.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from typing import List, Tuple
 import torch
 import torch.nn as nn
 
-from ..ops.cuda.bottleneck import fold_bn, fused_bottleneck
+from ..ops.cuda.bottleneck import fold_bn, fused_bottleneck, pack_weights
 from .enet import ENet, TRUNK, BatchNorm, ConvBNAct
 
 
@@ -74,6 +75,9 @@ class FusedBlock(nn.Module):
             self.register_buffer(name, vals[name].contiguous())
         self.register_buffer("core", core.contiguous())
         self.mid = mid
+        # the bf16 kernel's weights: rounded to bf16 once, fragment order
+        self.register_buffer("packed", pack_weights(
+            self.wp, self.wcore(), self.we, kind=kind))
 
     def wcore(self):
         if self.kind != "asymmetric":
@@ -87,7 +91,7 @@ class FusedBlock(nn.Module):
         return fused_bottleneck(
             x, self.wp, self.s1, self.b1, self.a1, self.wcore(), self.s2,
             self.b2, self.a2, self.we, self.s3, self.b3, self.ao,
-            kind=self.kind, dilation=self.dilation)
+            kind=self.kind, dilation=self.dilation, packed=self.packed)
 
 
 class FusedENet(nn.Module):

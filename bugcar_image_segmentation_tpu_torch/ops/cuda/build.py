@@ -125,14 +125,22 @@ def library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         lib.bugcar_fused_bottleneck.argtypes = (
-            [_P, _P] + [_I] * 5 + [_P] * 12 + [_I, _I, _I, _P])
+            [_P, _P] + [_I] * 5 + [_P] * 13 + [_I, _I, _I, _P])
         lib.bugcar_fused_bottleneck.restype = _I
-        lib.bugcar_fused_bottleneck_smem_bytes.argtypes = [_I, _I]
+        lib.bugcar_fused_bottleneck_plan.argtypes = (
+            [_I] * 6 + [ctypes.POINTER(ctypes.c_int)])
+        lib.bugcar_fused_bottleneck_plan.restype = _I
+        lib.bugcar_fused_bottleneck_smem_bytes.argtypes = [_I] * 4
         lib.bugcar_fused_bottleneck_smem_bytes.restype = _I
         for name in ("bugcar_flash_attention", "bugcar_flash_attention_t"):
             fn = getattr(lib, name)
             fn.argtypes = [_P] * 4 + [_I] * 4 + [ctypes.c_float, _I, _P]
             fn.restype = _I
+        lib.bugcar_flash_attention_rows.argtypes = [_I] * 4
+        lib.bugcar_flash_attention_rows.restype = _I
+        lib.bugcar_flash_attention_bf16_rows.argtypes = (
+            [_P] * 4 + [_I] * 4 + [ctypes.c_float, _I, _I, _P])
+        lib.bugcar_flash_attention_bf16_rows.restype = _I
         lib.bugcar_fused_sepconv.argtypes = [_P] * 8 + [_I] * 11 + [_P]
         lib.bugcar_fused_sepconv.restype = _I
         lib.bugcar_fused_sepconv_max_clusters.argtypes = [_I, _I, _I]

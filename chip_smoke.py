@@ -16,7 +16,8 @@ phase with its elapsed seconds:
    and dilations) at the ENet path's shape (N = 1 and 4, 32x64x128, mid
    32), on the real trunk activations of a seeded ENet, held against its
    plain PyTorch version in bfloat16 and in float32 (TF32 off), and timed
-   with CUDA events.
+   with CUDA events; each record carries its launch plan (kernel, CTAs,
+   threads, output pixels a CTA, the y1 tile a CTA projects).
 4. ``path``   — ``build_engine("enet_fused")`` with seeded weights (a
    Flax-layout numpy tree through the weight bridge) and ``Pipeline`` at
    ENet's full width (512x256, 15 classes) on synthetic 640x480 frames:
@@ -30,7 +31,8 @@ phase with its elapsed seconds:
    shape, each held against ``attention_reference`` in bfloat16 and in
    float32 (TF32 off), and timed with CUDA events beside the plain version
    and ``torch.nn.functional.scaled_dot_product_attention`` (a yardstick,
-   never on the path).
+   never on the path); each bf16 record carries its launch plan (queries
+   and threads a CTA, CTAs).
 6. ``segformer_path`` — ``build_engine("segformer_b0")`` (MiT-B0 at
    1024x1024, 15 classes, bf16, seeded weights) and ``Pipeline``:
    ``pipe(frame)``, ``pipe.stream(frames, depth=2)``, a 4-frame batch, and
@@ -327,7 +329,7 @@ def enet_phases(lib, smi: str, dev) -> dict:
     from bugcar_image_segmentation_tpu_torch.models import preprocess as pre
     from bugcar_image_segmentation_tpu_torch.ops import cuda as kcuda
     from bugcar_image_segmentation_tpu_torch.ops.cuda.bottleneck import (
-        fused_bottleneck_ref, launch_args)
+        fused_bottleneck_ref, launch_args, plan)
 
     # -- weights, frames, engines --------------------------------------------
     t = time.perf_counter()
@@ -377,10 +379,13 @@ def enet_phases(lib, smi: str, dev) -> dict:
                     key = (dt, n)
                     worst[key] = max(worst.get(key, 0.0), err)
                     rec = dict(dtype=dt, n=n, block=i, kind=blk.kind,
-                               dilation=blk.dilation, max_abs_err=err)
+                               dilation=blk.dilation, max_abs_err=err,
+                               plan=plan(n, x.shape[1], x.shape[2], blk.kind,
+                                         blk.dilation, x.dtype))
                     if dt == "bfloat16":
                         xi, out = x, torch.empty_like(x)
-                        raw, keep = launch_args(xi, out, *args, **kw)
+                        raw, keep = launch_args(xi, out, *args, **kw,
+                                                packed=blk.packed)
                         # device time: bare launches, no Python checks
                         rec["ms"] = cuda_ms(
                             lambda: lib.bugcar_fused_bottleneck(*raw), 200)
@@ -404,7 +409,8 @@ def enet_phases(lib, smi: str, dev) -> dict:
     chain_args = [launch_args(bufs[i % 2], bufs[(i + 1) % 2], blk.wp, blk.s1,
                               blk.b1, blk.a1, blk.wcore(), blk.s2, blk.b2,
                               blk.a2, blk.we, blk.s3, blk.b3, blk.ao,
-                              kind=blk.kind, dilation=blk.dilation)
+                              kind=blk.kind, dilation=blk.dilation,
+                              packed=blk.packed)
                   for i, blk in enumerate(blocks)]
 
     def chain_kernel():
@@ -440,7 +446,10 @@ def enet_phases(lib, smi: str, dev) -> dict:
          trunk_16_launches_ms=trunk_ms,
          trunk_through_wrapper_ms=trunk_wrapper_ms,
          trunk_plain_ms=trunk_plain_ms,
-         trunk_bound_ms=trunk_bound_ms)
+         trunk_bound_ms=trunk_bound_ms,
+         plan_main={f"{b.kind}/d={b.dilation}": plan(
+             1, x0.shape[1], x0.shape[2], b.kind, b.dilation)
+             for b in blocks})
     for rec in per_block:
         if rec["dtype"] == "bfloat16":
             print(json.dumps({"phase": "kernel_block", **rec}), flush=True)
@@ -587,6 +596,12 @@ def attention_phase(lib, clock_hz: float) -> dict:
                     if name == "flash_attention_t"
                     else F.scaled_dot_product_attention(q, k, v), iters)
                 rec.update(attention_bound(shape, dt, clock_hz))
+                rows = lib.bugcar_flash_attention_rows(
+                    nq, d, 1, int(name == "flash_attention_t"))
+                rec["plan"] = {"kernel": "flash_attention_mma",
+                               "queries_per_cta": rows,
+                               "ctas": -(-nq // rows) * b * h,
+                               "threads": 2 * rows}
             records[name, shape] = rec
             print(json.dumps({"phase": "attention_case", **rec}), flush=True)
     emit("attention_kernels", seconds=round(time.perf_counter() - t, 3),

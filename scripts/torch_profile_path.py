@@ -32,9 +32,10 @@ Measurements:
 - ``profile``: ``torch.profiler`` over ``pipe(frame)`` for the frames:
   wall and device-busy milliseconds per frame (the union of the device
   activity intervals), the device's idle share, kernel launches per frame,
-  the device time of the path's hand-written kernels per frame (the
-  attention kernel for SegFormer, the fused sepconv for Xception), and
-  the kernels that take the most device time.
+  the device time of the path's hand-written kernels per frame (the fused
+  bottleneck for ENet, the attention kernel for SegFormer, the fused
+  sepconv for Xception), in all and by template instance, and the kernels
+  that take the most device time.
 
 Last it prints the nvidia-smi name/power-limit line.  Exits non-zero
 without a CUDA device.
@@ -143,9 +144,10 @@ def _xception_stages(eng, pipe, stage, frame):
 
 # Device-time names of the port's hand-written kernels, by path (the
 # attention source's tensor-core and SIMT kernels; the sepconv's bf16 and
-# f32 kernels).
+# f32 kernels; the bottleneck's bf16 and f32 kernels).
 KERNEL_NAMES = {"segformer_b0": ("flash_attention_mma", "flash_attention_simt"),
-                "deeplab_xception": ("sepconv_bf16", "sepconv_f32")}
+                "deeplab_xception": ("sepconv_bf16", "sepconv_f32"),
+                "enet": ("fused_bottleneck_mma", "fused_bottleneck_tile")}
 
 
 def main() -> int:
@@ -263,6 +265,11 @@ def main() -> int:
             "kernel_ms_per_frame": sum(per_kernel.values()) / n / 1e3,
             "kernels_ms_per_frame": {k: v / n / 1e3
                                      for k, v in per_kernel.items()},
+            # each instance (template arguments: width, layout, kind)
+            "instances_ms_per_frame": {
+                k[:120]: v[0] / n / 1e3 for k, v in kernels.items()
+                if any(name + "<" in k
+                       for name in KERNEL_NAMES.get(args.engine, ()))},
             "top_device_time": [
                 {"name": k[:90], "us_per_frame": v[0] / n,
                  "count_per_frame": v[1] / n} for k, v in top],

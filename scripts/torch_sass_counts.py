@@ -1,0 +1,87 @@
+#!/usr/bin/env python3
+"""Which instructions the port's kernels compiled to, on the GPU host.
+
+    python3 scripts/torch_sass_counts.py
+
+from the root of a checkout, on a host with the CUDA toolkit.  It builds
+(or loads) the kernel library as the wrappers do (``ops/cuda/build.py``),
+disassembles it with ``cuobjdump -sass`` and prints one JSON line per
+kernel instance: its name and the count of each instruction class that
+says which units it uses -- HMMA (mma.sync on the tensor cores), HGMMA
+(wgmma), LDSM (ldmatrix), LDGSTS (cp.async), UTMALDG (TMA loads), FFMA
+(f32 FMA), MUFU (special-function unit: ex2 and others).  Exits non-zero
+without cuobjdump.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+from collections import Counter
+from pathlib import Path
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+OPS = ("HMMA", "HGMMA", "LDSM", "LDGSTS", "UTMALDG", "FFMA", "MUFU")
+
+
+def cuobjdump() -> str:
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    for root in filter(None, (os.environ.get("CUDA_HOME"), "/usr/local/cuda")):
+        cand = Path(root) / "bin" / "cuobjdump"
+        if cand.exists():
+            return str(cand)
+    raise SystemExit("torch_sass_counts: cuobjdump not found")
+
+
+def main() -> int:
+    from bugcar_image_segmentation_tpu_torch.ops.cuda import build as kbuild
+    tool = cuobjdump()
+    lib = kbuild.build()
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=600, check=True).stdout
+    name, counts, found = None, Counter(), []
+
+    def flush():
+        if name is not None:
+            found.append((name, {op: counts[op] for op in OPS}))
+
+    for line in sass.splitlines():
+        head = re.match(r"\s*Function\s*:\s*(\S+)", line)
+        if head:
+            flush()
+            name, counts = head.group(1), Counter()
+            continue
+        op = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)",
+                       line)
+        if op and name is not None:
+            counts[op.group(1)] += 1
+    flush()
+    names = demangle([n for n, _ in found])
+    for readable, (_, ops) in zip(names, found):
+        print(json.dumps({"kernel": readable[:160], **ops}), flush=True)
+    return 0
+
+
+def demangle(names):
+    """C++ names through cu++filt or c++filt where either is installed."""
+    tool = shutil.which("cu++filt") or shutil.which("c++filt")
+    cand = Path(cuobjdump()).with_name("cu++filt")
+    if cand.exists():
+        tool = str(cand)
+    if not tool or not names:
+        return names
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                         text=True, timeout=60).stdout.splitlines()
+    return out if len(out) == len(names) else names
+
+
+if __name__ == "__main__":
+    sys.exit(main())

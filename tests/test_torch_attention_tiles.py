@@ -1,5 +1,6 @@
 """The arithmetic of the tensor-core flash attention (``csrc/flash_attention.cu``,
-``flash_attention_mma``: bf16, token-major), emulated in torch on the CPU.
+``flash_attention_mma``: bf16, token-major and channel-major), emulated in
+torch on the CPU.
 
 The kernel itself runs only on the card (tests/test_torch_cuda.py).  This
 file holds its arithmetic -- 64-key tiles, an online softmax with exp2 on
@@ -10,6 +11,10 @@ into one f32 accumulator, one cast at the end -- against the plain version
 operands and round once), and against the JAX Pallas ``flash_attention``
 in interpret mode at one small shape.  It also pins why P is split: with a
 single bf16 P the same loop breaks the budget wherever the output is near 0.
+The channel-major kernel (``flash_attention_t``) runs the same loop on
+[channel][token] tiles, so the same emulation on transposed operands is
+held against ``attention_reference_t`` and against the Pallas
+``flash_attention_t`` in both its single-pass and its blocked regime.
 """
 
 import math
@@ -130,4 +135,50 @@ def test_emulation_matches_pallas_interpret():
         *(jnp.asarray(t.float().numpy()) for t in (q, k, v)),
         block_q=64, block_kv=32))
     got = emulate(q, k, v).float().numpy()
+    assert (np.abs(got - want) <= ATOL + RTOL * np.abs(want)).all()
+
+
+def emulate_t(q, k, v):
+    """The channel-major kernel: the same arithmetic on (B, H, d, N)."""
+    out = emulate(*(t.transpose(-1, -2) for t in (q, k, v)))
+    return out.transpose(-1, -2).contiguous()
+
+
+def _qkv_t(b, h, nq, nkv, d, seed):
+    return [t.transpose(-1, -2).contiguous()
+            for t in _qkv(b, h, nq, nkv, d, seed)]
+
+
+@pytest.mark.parametrize("nkv", [1, 37, 1000])
+@pytest.mark.parametrize("nq", [1, 100, 130])
+def test_emulation_t_within_budget_ragged(nq, nkv):
+    """Channel-major at ragged Nq and Nkv (Nq, Nkv not multiples of 8: the
+    kernel loads those tiles element by element)."""
+    q, k, v = _qkv_t(2, 3, nq, nkv, 32, seed=nq + 3 * nkv)
+    share, err = _over(emulate_t(q, k, v), att.attention_reference_t(q, k, v))
+    assert share == 0.0, (share, err)
+
+
+@pytest.mark.parametrize("h,nq", [(2, 2048), (5, 1024), (8, 512)],
+                         ids=["stage1", "stage2", "stage3"])
+def test_emulation_t_within_budget_at_segformer_stages(h, nq):
+    """SegFormer-B0's stages 1-3 (heads 2 / 5 / 8, d 32, 1024 keys) with the
+    queries cut 8x / 4x / 2x, seeded normal bf16 operands."""
+    q, k, v = _qkv_t(1, h, nq, 1024, 32, seed=h)
+    share, err = _over(emulate_t(q, k, v), att.attention_reference_t(q, k, v))
+    assert share == 0.0, (share, err)
+    assert err < 2 ** -9
+
+
+@pytest.mark.parametrize("block_kv", [None, 32], ids=["single-pass", "blocked"])
+def test_emulation_t_matches_pallas_interpret(block_kv):
+    """The JAX package's channel-major Pallas kernel (interpret mode, f32
+    operands that are bf16 values): all keys in one block (Nkv <= 2048,
+    its single-pass kernel) or blocks of 32 keys (its online-softmax
+    kernel), against the emulation under the same budget."""
+    q, k, v = _qkv_t(1, 2, 128, 96, 32, seed=4)
+    want = np.asarray(jatt.flash_attention_t(
+        *(jnp.asarray(t.float().numpy()) for t in (q, k, v)),
+        block_q=64, block_kv=block_kv))
+    got = emulate_t(q, k, v).float().numpy()
     assert (np.abs(got - want) <= ATOL + RTOL * np.abs(want)).all()

@@ -69,8 +69,9 @@ def _args(kind, seed, device, c=128, mid=32):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("shape", [(1, 32, 64), (4, 32, 64), (2, 6, 5),
-                                   (3, 17, 9)],
-                         ids=["main1", "main4", "smaller-than-halo", "odd"])
+                                   (3, 17, 9), (2, 5, 13), (1, 7, 70)],
+                         ids=["main1", "main4", "smaller-than-halo", "odd",
+                              "ragged", "partial-tile"])
 @pytest.mark.parametrize("kind,dil", KINDS)
 def test_kernel_matches_plain(dev, kind, dil, shape, dtype):
     n, h, w = shape
@@ -105,10 +106,20 @@ def test_asymmetric_core_pair_shared_or_separate(dev):
 
 
 @pytest.mark.parametrize("bad", ["dtype", "width", "noncontig", "wdtype",
-                                 "wdevice"])
+                                 "wdevice", "packed_dtype", "packed_shape",
+                                 "packed_device"])
 def test_wrapper_rejects(dev, bad):
+    from bugcar_image_segmentation_tpu_torch.ops.cuda.bottleneck import \
+        pack_weights
     args = _args("regular", 3, dev)
     x = torch.randn(1, 8, 8, 128, device=dev)
+    kw = {}
+    if bad.startswith("packed"):   # the bf16 kernel's weights
+        x = x.bfloat16()
+        packed = pack_weights(args[0], args[4], args[8])
+        kw["packed"] = {"packed_dtype": packed.float(),
+                        "packed_shape": packed[:-8],
+                        "packed_device": packed.cpu()}[bad]
     if bad == "dtype":
         x = x.half()
     elif bad == "width":
@@ -121,8 +132,105 @@ def test_wrapper_rejects(dev, bad):
         args[0] = args[0].cpu()
     before = kcuda.LAUNCHES["fused_bottleneck"]
     with pytest.raises(ValueError):
-        fused_bottleneck(x, *args, kind="regular")
+        fused_bottleneck(x, *args, kind="regular", **kw)
     assert kcuda.LAUNCHES["fused_bottleneck"] == before
+
+
+@pytest.mark.parametrize("kind,dil", KINDS)
+def test_bottleneck_frame_alone_equals_frame_in_batch(dev, kind, dil):
+    """bf16 at the path's shape: frame 0 alone and inside a batch of 4 are
+    bit-equal (the launch plan depends on (h, w, kind, d) only)."""
+    args = _args(kind, 20 + KINDS.index((kind, dil)), dev)
+    x = torch.as_tensor(np.random.default_rng(2).standard_normal(
+        (4, 32, 64, 128)).astype(np.float32), device=dev).bfloat16()
+    batch = fused_bottleneck(x, *args, kind=kind, dilation=dil)
+    alone = fused_bottleneck(x[:1].contiguous(), *args, kind=kind,
+                             dilation=dil)
+    torch.cuda.synchronize()
+    assert torch.equal(alone, batch[:1])
+
+
+@pytest.mark.parametrize("kind,dil", [("dilated", 16), ("asymmetric", 1)])
+def test_bottleneck_packed_once_equals_packed_per_call(dev, kind, dil):
+    """FusedBlock's weights packed once at construction give the same bits
+    as the wrapper packing them at the call, and the same launch count."""
+    from bugcar_image_segmentation_tpu_torch.ops.cuda.bottleneck import \
+        pack_weights
+    args = _args(kind, 30, dev)
+    packed = pack_weights(args[0], args[4], args[8], kind=kind)
+    x = torch.randn(2, 32, 64, 128, device=dev).bfloat16()
+    before = kcuda.LAUNCHES["fused_bottleneck"]
+    a = fused_bottleneck(x, *args, kind=kind, dilation=dil, packed=packed)
+    b = fused_bottleneck(x, *args, kind=kind, dilation=dil)
+    assert kcuda.LAUNCHES["fused_bottleneck"] == before + 2
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dil,hw", [(32, (40, 24)), (24, (9, 64))],
+                         ids=["d-over-w", "windows"])
+def test_bottleneck_large_dilation(dev, dil, hw):
+    """d >= w: the side taps of the 3x3 fall off the image for every pixel
+    (the kernel skips them); 16 < d < w: the tile is the three 16-column
+    windows the taps read.  Within the budget of the plain version, in
+    bf16 and f32."""
+    args = _args("dilated", 31, dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn(1, *hw, 128, device=dev).to(dtype)
+        got = fused_bottleneck(x, *args, kind="dilated", dilation=dil)
+        ref = fused_bottleneck_ref(x, *args, kind="dilated", dilation=dil)
+        torch.cuda.synchronize()
+        atol, rtol = TOL[dtype]
+        diff = (got.float() - ref.float()).abs()
+        assert bool((diff <= atol + rtol * ref.float().abs()).all()), \
+            float(diff.max())
+
+
+@pytest.mark.parametrize("shape", [(1, 32, 64), (4, 32, 64), (2, 5, 13),
+                                   (1, 7, 70)],
+                         ids=["main1", "main4", "ragged", "partial-tile"])
+@pytest.mark.parametrize("kind,dil", KINDS)
+def test_bottleneck_bf16_bits_are_the_chain(dev, kind, dil, shape):
+    """The bf16 kernel sums on the tensor cores but rounds y1, the 5x1
+    result, y2 and the output as an f32 FMA chain over the input channels in
+    order does: bit for bit the emulation of that chain
+    (tests/test_torch_bottleneck_tiles.emulate), run here on the card."""
+    from test_torch_bottleneck_tiles import emulate
+    args = _args(kind, 40 + KINDS.index((kind, dil)), dev)
+    x = torch.as_tensor(np.random.default_rng(3).standard_normal(
+        (*shape, 128)).astype(np.float32), device=dev).bfloat16()
+    got = fused_bottleneck(x, *args, kind=kind, dilation=dil)
+    want = emulate(x, *args, kind=kind, dilation=dil)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16)), \
+        int((got.view(torch.int16) != want.view(torch.int16)).sum())
+
+
+@pytest.mark.parametrize("kind,dil,cols", [
+    ("regular", 1, 18), ("dilated", 2, 20), ("dilated", 4, 24),
+    ("dilated", 8, 32), ("dilated", 16, 48), ("asymmetric", 1, 20)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_bottleneck_plan_at_the_path_shape(dev, kind, dil, cols, dtype):
+    """At ENet's 32x64 trunk map every block launches 128 CTAs of 16
+    pixels; the y1 tile is 16 + 2d columns (20 for the 1x5); the batch
+    only repeats the grid (the plan the kernel source reports)."""
+    from bugcar_image_segmentation_tpu_torch.ops.cuda.bottleneck import plan
+    pl = plan(1, 32, 64, kind, dil, dtype)
+    assert pl["ctas"] == 128 and pl["px_per_cta"] == 16
+    assert pl["kernel"] == ("fused_bottleneck_mma" if dtype == torch.bfloat16
+                            else "fused_bottleneck_tile")
+    assert pl["threads"] == (256 if dtype == torch.bfloat16 else 512)
+    assert pl["y1_tile"] == [5 if kind == "asymmetric" else 3, cols]
+    assert plan(4, 32, 64, kind, dil, dtype)["ctas"] == 4 * pl["ctas"]
+
+
+@pytest.mark.parametrize("dil,w,cols", [(24, 64, 48), (32, 24, 16),
+                                        (64, 64, 16)])
+def test_bottleneck_plan_large_dilations(dev, dil, w, cols):
+    """16 < d < w: the three 16-column windows the taps read (48 columns);
+    d >= w: the centre window alone (the side taps read only padding)."""
+    from bugcar_image_segmentation_tpu_torch.ops.cuda.bottleneck import plan
+    assert plan(1, 8, w, "dilated", dil)["y1_tile"] == [3, cols]
 
 
 # -- flash attention -------------------------------------------------------
@@ -360,8 +468,9 @@ def test_attention_mma_ragged(dev, shape):
 
 @pytest.mark.parametrize("shape", [(4, 1, 4096, 1024, 32),
                                    (4, 1, 33850, 256, 32),
-                                   (4, 2, 1000, 77, 64)],
-                         ids=["64rows", "128rows", "d64"])
+                                   (4, 2, 1000, 77, 64),
+                                   (4, 8, 1024, 1024, 32)],
+                         ids=["64rows", "128rows", "d64", "stage3"])
 @pytest.mark.parametrize("name", ["flash_attention", "flash_attention_t"])
 def test_attention_frame_alone_equals_frame_in_batch(dev, name, shape):
     """bf16: a frame's output alone and inside a batch of 4 are bit-equal."""
@@ -374,6 +483,65 @@ def test_attention_frame_alone_equals_frame_in_batch(dev, name, shape):
     alone = fn(*(x[:1].contiguous() for x in (q, k, v)))
     torch.cuda.synchronize()
     assert torch.equal(alone, batch[:1])
+
+
+# flash_attention_t's bf16 path runs the same tensor-core kernel on
+# channel-major tiles: 16-byte vectors where Nq and Nkv are multiples of 8,
+# element by element otherwise; 32, 64 or 128 queries a CTA.
+
+@pytest.mark.parametrize("shape", MMA_SHAPES + [(2, 3, 1000, 77, 64),
+                                                (1, 2, 130, 1, 32),
+                                                (1, 8, 1024, 1024, 32)],
+                         ids=["-".join(map(str, s)) for s in MMA_SHAPES]
+                         + ["1000-77-d64", "130-1", "stage3"])
+def test_attention_t_mma_ragged(dev, shape):
+    """Channel-major bf16 at ragged Nq and Nkv, both head dims, every CTA
+    width the plan takes, against the plain version (one ulp)."""
+    from bugcar_image_segmentation_tpu_torch.ops.cuda import attention as att
+    q, k, v = (x.transpose(-1, -2).contiguous()
+               for x in _qkv(shape, torch.bfloat16, dev, seed=13))
+    before = kcuda.LAUNCHES["flash_attention_t"]
+    got = att.flash_attention_t(q, k, v)
+    assert kcuda.LAUNCHES["flash_attention_t"] == before + 1
+    ref = att.attention_reference_t(q, k, v)
+    torch.cuda.synchronize()
+    atol, rtol = ATTN_TOL[torch.bfloat16]
+    diff = (got.float() - ref.float()).abs()
+    assert bool((diff <= atol + rtol * ref.float().abs()).all()), \
+        float(diff.max())
+
+
+@pytest.mark.parametrize("shape", [(1, 8, 1024, 1024, 32),
+                                   (1, 2, 1000, 77, 32),
+                                   (2, 1, 300, 130, 64)],
+                         ids=["stage3", "ragged", "d64"])
+@pytest.mark.parametrize("channel_major", [False, True],
+                         ids=["token", "channel"])
+def test_attention_widths_bit_equal(dev, shape, channel_major):
+    """Every CTA width (32, 64 and, at d = 32, 128 queries) gives the same
+    bits: a query row runs the same instructions whatever the plan."""
+    import ctypes
+    import math
+
+    from bugcar_image_segmentation_tpu_torch.ops.cuda import build
+    b, h, nq, nkv, d = shape
+    q, k, v = _qkv(shape, torch.bfloat16, dev, seed=14)
+    if channel_major:
+        q, k, v = (x.transpose(-1, -2).contiguous() for x in (q, k, v))
+    lib = build.library()
+    outs = []
+    for rows in (32, 64, 128) if d == 32 else (32, 64):
+        out = torch.empty_like(q)
+        err = lib.bugcar_flash_attention_bf16_rows(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h,
+            nq, nkv, d, ctypes.c_float(1.0 / math.sqrt(d)),
+            int(channel_major), rows,
+            torch.cuda.current_stream().cuda_stream)
+        build.check(err, f"rows {rows}")
+        outs.append(out)
+    torch.cuda.synchronize()
+    for out in outs[1:]:
+        assert torch.equal(out, outs[0])
 
 
 def _smoke_sites():
