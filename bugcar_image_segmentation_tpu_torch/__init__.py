@@ -12,24 +12,28 @@ it nor JAX, Flax, msgpack or cv2.  The ported slices carry the path
 
 with the backbone ENet (``"enet"``, or ``"enet_fused"`` with the 16 trunk
 bottlenecks as a hand-written CUDA kernel), SegFormer B0-B3
-(``"segformer[_bN][_q]"``, attention as a hand-written CUDA kernel) or
-DeepLabV3+ on Xception-65 (``"[deeplab_]xception[_q][_fs]"``), any of them
-with ``_w16`` (weights rounded to bf16).  ``bench.py``'s path is
-``build_engine("enet_w16")`` with ``Pipeline(..., host_resize=True,
+(``"segformer[_bN][_q]"``, attention as a hand-written CUDA kernel),
+DeepLabV3+ on Xception-65 (``"[deeplab_]xception[_q][_fs]"``) or on
+MobileNetV2 (``"deeplab[_q]"``), or UNet (``"unet"``, ``"unet_ph"``), any
+of them with ``_w16`` (weights rounded to bf16); optionally CLAHE before
+the backbone, the contour filter after it and a laserscan grid, and N
+cameras stitched into one grid (``MultiCameraPipeline``).  ``bench.py``'s
+path is ``build_engine("enet_w16")`` with ``Pipeline(..., host_resize=True,
 transport="i420")``.
 
 Layer map:
   ops/        resamplers, the host resize, the I420 transport, pooling,
-              morphology, the homography warp, ops/cuda/ (kernel wrappers;
-              sources in csrc/)
+              morphology, the homography warp, the polar plans, ops/cuda/
+              (kernel wrappers; sources in csrc/)
   geometry    calibration-time homography math (host numpy)
   configs     calibration / grid / model / runtime configs
-  models/     ENet and its fused-trunk executor, SegFormer, Xception
-              DeepLab, preprocess, remap, Engine
+  models/     ENet and its fused-trunk executor, SegFormer, the Xception
+              and MobileNetV2 DeepLabs, UNet, preprocess, remap, Engine
   convert/    Flax variable trees → the port's state dicts
   utils/      the Flax checkpoint reader (no msgpack, no Flax)
-  grid        segmap → occupancy grid
-  pipeline    frame → grid, batched and streaming
+  grid        segmap → occupancy grid (ops/polar.py: laserscan)
+  postproc    CLAHE and the contour filter
+  pipeline    frame → grid, batched and streaming; the camera rig
   synthetic   procedural road scenes (numpy)
 
 Entry points run on the GPU (``device="cuda"``) unless the caller passes
@@ -42,12 +46,13 @@ from .calibration import BEVTransform
 from .configs import CalibrationConfig, GridConfig, ModelConfig, RuntimeConfig
 from .grid import OccupancyGridBuilder
 from .models.api import Engine, build_engine
-from .pipeline import Pipeline
+from .pipeline import MultiCameraPipeline, Pipeline, stitch_grids
 
 __version__ = "0.1.0"
 
 __all__ = [
     "BEVTransform", "CalibrationConfig", "GridConfig", "ModelConfig",
-    "RuntimeConfig", "OccupancyGridBuilder", "Pipeline", "Engine",
-    "build_engine", "configs", "geometry",
+    "RuntimeConfig", "OccupancyGridBuilder", "Pipeline",
+    "MultiCameraPipeline", "stitch_grids", "Engine", "build_engine",
+    "configs", "geometry",
 ]

@@ -114,15 +114,17 @@ class BEVTransform:
 
 
 
-def toy_calibration(input_hw: Tuple[int, int]) -> CalibrationConfig:
+def toy_calibration(input_hw: Tuple[int, int],
+                    yaw: float = 0.05) -> CalibrationConfig:
     """A plausible synthetic camera→BEV calibration (256x256 BEV image)
     for an input of ``input_hw`` (the numbers of the JAX repo's
     ``__graft_entry__._toy_calibration``): a fiducial tile seen ahead of
-    the camera, solved with this package's geometry."""
+    the camera, solved with this package's geometry; ``yaw`` (radians)
+    turns the camera, as the cameras of a rig are turned."""
     h, w = input_hw
     cal = CalibrationConfig(
         input_shape=(w, h), output_shape=(256, 256),
-        dist2target=(2.0, 60.0), tile_length=60.0, cm_per_px=2.0, yaw=0.05)
+        dist2target=(2.0, 60.0), tile_length=60.0, cm_per_px=2.0, yaw=yaw)
     tile = np.array([[0.41 * w, 0.55 * h], [0.59 * w, 0.55 * h],
                      [0.64 * w, 0.72 * h], [0.36 * w, 0.73 * h]])
     m = geometry.calculate_transform_matrix(

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from .flax_enet import _leaves
+from .flax_tree import random_variables
 
 
 def segformer_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
@@ -41,41 +42,12 @@ def segformer_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
 def random_segformer_variables(seed: int = 0, size: str = "b0",
                                num_classes: int = 15, **overrides) -> dict:
     """A Flax-layout SegFormer-``size`` variable tree of numpy arrays,
-    made from ``seed``: LeCun-normal kernels, non-trivial LayerNorm and
-    BatchNorm scales and biases and BatchNorm statistics, so that every
-    parameter matters.  ``overrides`` (widths, depths, decoder_dim, ...)
-    replace the preset's."""
+    made from ``seed`` (``flax_tree.random_variables``).  ``overrides``
+    (widths, depths, decoder_dim, ...) replace the preset's."""
     from ..models.segformer import SegFormer   # the shapes come from the port
 
-    rng = np.random.default_rng(seed)
-    params: dict = {}
-    stats: dict = {}
-    model = SegFormer.preset(size, num_classes=num_classes, **overrides)
-    for key, t in model.state_dict().items():
-        path = key.split(".")
-        shape = tuple(t.shape)
-        tree = params
-        if path[-1] == "weight":
-            if len(shape) == 4:     # OIHW → HWIO
-                kshape = (shape[2], shape[3], shape[1], shape[0])
-            else:                   # (out, in) → (in, out)
-                kshape = (shape[1], shape[0])
-            fan_in = int(np.prod(kshape[:-1]))
-            leaf = rng.standard_normal(kshape) / np.sqrt(fan_in)
-            path[-1] = "kernel"
-        elif path[-1] in ("mean", "var"):
-            leaf = (rng.uniform(-0.2, 0.2, shape) if path[-1] == "mean"
-                    else rng.uniform(0.5, 1.5, shape))
-            tree = stats
-        elif path[-1] == "scale":
-            leaf = rng.uniform(0.7, 1.3, shape)
-        else:   # Dense / conv / LayerNorm / BatchNorm bias
-            leaf = rng.uniform(-0.1, 0.1, shape)
-        node = tree
-        for p in path[:-1]:
-            node = node.setdefault(p, {})
-        node[path[-1]] = leaf.astype(np.float32)
-    return {"params": params, "batch_stats": stats}
+    return random_variables(
+        SegFormer.preset(size, num_classes=num_classes, **overrides), seed)
 
 
 __all__ = ["segformer_state_dict", "random_segformer_variables"]

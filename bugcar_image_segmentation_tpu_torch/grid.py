@@ -13,18 +13,20 @@ Value semantics of the returned int8 grid (reference bev.py:242-245):
    0 = free (road)
  100 = occupied (flat-non-road in multiclass; non-road in binary)
 
-The laserscan mode (ray-cast first hit, reference bev.py:148, 219) is not
-part of this slice: it raises ``NotImplementedError``.
+The laserscan mode (reference bev.py:148, 219) ray-casts the binned grid
+through constant polar plans (``ops/polar.py``): multiclass keeps, of the
+occupied cells, the first hit along each ray; binary returns the pair
+(plain grid, ray-cast grid).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Tuple, Union
 
 import torch
 
 from .configs import CalibrationConfig, GridConfig
-from .ops import morphology, resize, warp
+from .ops import morphology, polar, resize, warp
 
 
 class TemplateGeometry(NamedTuple):
@@ -70,8 +72,7 @@ class OccupancyGridBuilder:
       interpolation: "cv2_linear" (bilinear on class values, as the
         reference), "nearest", or "native" (warp only the cell-centre
         template pixels; morphology at cell resolution).
-      laserscan: must be False (or None with a non-laserscan calibration)
-        in this slice.
+      laserscan: override the calibration's laserscan flag.
       label_scale: take the segmap at 1/label_scale of the calibrated
         input resolution (a quarter-resolution head's labels).  Only with
         ``interpolation="native"``: the cell-centre warp reads the small
@@ -94,12 +95,7 @@ class OccupancyGridBuilder:
                 "label_scale > 1 requires interpolation='native' (the "
                 "parity path warps at template resolution; lift the "
                 "labels to input res instead)")
-        laserscan = cal.laserscan if laserscan is None else laserscan
-        if laserscan:
-            raise NotImplementedError(
-                "laserscan grids are not ported yet; they come with the "
-                "laserscan slice (polar plans; ROADMAP Queue 1, the "
-                "laserscan grid)")
+        self.laserscan = cal.laserscan if laserscan is None else laserscan
         self.cal = cal
         self.grid = grid
         self.mode = mode
@@ -133,9 +129,28 @@ class OccupancyGridBuilder:
         self.host_taps = taps
         self._taps = warp.taps_to(taps, self.device)
 
-    def build(self, segmap: torch.Tensor) -> torch.Tensor:
+        if self.laserscan:
+            ch, cw = g.cells_h, g.cells_w
+            longer = float(max(cw, ch))
+            centre = (cw / 2 - 1, float(ch))
+            if mode == "multiclass":
+                # reference bev.py:219 passes dsize=(-1,-1) → auto size.
+                pw, ph = polar.auto_polar_dsize(longer)
+            else:
+                # reference bev.py:148 passes the grid's own (w, h).
+                pw, ph = cw, ch
+            self._fwd_plan = polar.plan_to(polar.polar_maps(
+                (ch, cw), (pw, ph), centre, longer), self.device)
+            self._inv_plan = polar.plan_to(polar.inverse_polar_maps(
+                (ch, cw), (ph, pw), centre, longer), self.device)
+            self._polar_shape = (ph, pw)
+
+    def build(self, segmap: torch.Tensor
+              ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
         """(H, W) or (B, H, W) uint8 segmap(s) on the builder's device →
-        int8 grid(s) (cells_h, cells_w)."""
+        int8 grid(s) (cells_h, cells_w); in binary laserscan mode the pair
+        (plain grid(s), ray-cast grid(s)), as the reference returns it
+        (bev.py:164)."""
         if tuple(segmap.shape[-2:]) != self.segmap_shape:
             raise ValueError(f"segmap shape {tuple(segmap.shape)} != "
                              f"expected {self.segmap_shape}")
@@ -160,18 +175,38 @@ class OccupancyGridBuilder:
             cells = resize.resize_nearest(template, (g.cells_h, g.cells_w))
 
         if self.mode == "multiclass":
-            new = torch.where(cells == 3, torch.ones_like(cells), cells)
+            if self.laserscan:
+                new = torch.where(cells != 3, cells,
+                                  self._ray_cast(cells, 3, 1))
+            else:
+                new = torch.where(cells == 3, torch.ones_like(cells), cells)
             vals = 200 - new.to(torch.int32) * 100
             return torch.where(new == 0, torch.full_like(vals, -1),
                                vals).to(torch.int8)
 
-        # binary mode (reference bev.py:97-165): 255 = unknown wraps to -1.
+        # binary mode (reference bev.py:97-165): 255 = unknown wraps to -1;
+        # the value map comes before the optional laserscan pass.
         vals = cells.to(torch.int32) * 100
         occ_u8 = torch.where(vals == 0, torch.full_like(vals, 255),
                              200 - vals).to(torch.uint8)
-        return occ_u8.to(torch.int8)
+        if not self.laserscan:
+            return occ_u8.to(torch.int8)
+        new = self._ray_cast(occ_u8, 100, 100).to(torch.int8)
+        new = torch.where(occ_u8 == 255, torch.full_like(new, -1), new)
+        return occ_u8.to(torch.int8), new
 
-    def __call__(self, segmap) -> torch.Tensor:
+    def _ray_cast(self, cells: torch.Tensor, target: int, value: int
+                  ) -> torch.Tensor:
+        """The laserscan pass: cells to polar, the first ``target`` along
+        each ray drawn as ``value`` (a 5-pixel diamond), back to cells."""
+        pol = polar.apply_gather(cells, self._fwd_plan)
+        has, col = polar.first_hit_per_row(pol, target)
+        canvas = polar.splat_first_hits(has, col, self._polar_shape, value,
+                                        torch.uint8)
+        return polar.apply_gather(canvas, self._inv_plan)
+
+    def __call__(self, segmap
+                 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
         """Build grid(s) from a (H, W) or (B, H, W) map (array or tensor)."""
         segmap = torch.as_tensor(segmap, dtype=torch.uint8,
                                  device=self.device)

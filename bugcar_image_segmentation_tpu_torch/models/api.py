@@ -14,7 +14,13 @@ Port of ``bugcar_image_segmentation_tpu/models/api.py`` (``Engine`` and
 - ``"[deeplab_]xception[_q][_fs]"``: DeepLabV3+ on Xception-65
   (:class:`~.xception.Xception65DeepLab`); ``_fs`` runs the 55 dilation-1
   separable convs of the entry and middle flows through the hand-written
-  CUDA kernel, ``_q`` as for SegFormer.  ``_int8`` is not ported.
+  CUDA kernel, ``_q`` as for SegFormer.  ``_int8`` is not ported;
+- ``"deeplab[_q]"``: DeepLabV3+ over MobileNetV2
+  (:class:`~.deeplab.DeepLabV3`, BASELINE config 2's ``deeplab.pb``
+  model), 1024x512 by default, ``_q`` as for SegFormer;
+- ``"unet"`` and ``"unet_ph"``: :class:`~.unet.UNet` (BASELINE config 3),
+  512x256 by default; ``unet_ph`` is the JAX package's 2x2 phase-space
+  layout of the same sums, the same module here.
 
 Any name takes the suffix ``_w16`` (``"enet_w16"``, the engine
 ``bench.py`` serves; ``"enet_fused_w16"``, ``"segformer_b0_w16"``,
@@ -40,20 +46,26 @@ from typing import Callable, Dict, Mapping, Optional, Tuple
 import torch
 
 from ..configs import ModelConfig
+from ..convert.flax_deeplab import deeplab_state_dict, random_deeplab_variables
 from ..convert.flax_enet import enet_state_dict
 from ..convert.flax_segformer import (random_segformer_variables,
                                       segformer_state_dict)
+from ..convert.flax_unet import random_unet_variables, unet_state_dict
 from ..convert.flax_xception import (random_xception_variables,
                                      xception_state_dict)
 from ..ops.resize import upsample_nearest_int
 from . import preprocess as pre
 from . import remap
+from .deeplab import DeepLabV3
 from .enet import ENet
 from .enet_fused import FusedENet
 from .segformer import SEGFORMER_PRESETS, SegFormer
+from .unet import UNet
 from .xception import Xception65DeepLab
 
 EXECUTORS = ("enet", "enet_fused")     # the ENet engines
+DEEPLAB = ("deeplab", "deeplab_q")     # MobileNetV2 DeepLab; _q: quarter head
+UNETS = ("unet", "unet_ph")            # the same UNet (_ph: a TPU layout)
 W16 = "_w16"      # suffix: serve from bf16-rounded weights
 
 
@@ -123,8 +135,9 @@ class Engine:
     """A segmentation backbone behind a frame → class-map API.
 
     Args:
-      name: "enet", "enet_fused", "segformer[_bN][_q]" or
-        "[deeplab_]xception[_q][_fs]", each optionally with ``_w16``
+      name: "enet", "enet_fused", "segformer[_bN][_q]",
+        "[deeplab_]xception[_q][_fs]", "deeplab[_q]", "unet" or "unet_ph",
+        each optionally with ``_w16``
         (weights rounded to bf16 at load).
       cfg: model geometry, normalisation constants and compute dtype.
       variables: a Flax-layout numpy variable tree, or a port state dict;
@@ -136,9 +149,9 @@ class Engine:
     resolution (4 for ``_q``); :meth:`segment` lifts them back,
     :meth:`segment_head` does not.
 
-    ``frame_by_frame`` (True for SegFormer): the backbone takes the frames
-    of a batch one at a time (see :meth:`forward`); False runs the whole
-    batch in one call.
+    ``frame_by_frame`` (True for SegFormer and UNet): the backbone takes
+    the frames of a batch one at a time (see :meth:`forward`); False runs
+    the whole batch in one call.
     """
 
     def __init__(self, name: str, cfg: ModelConfig,
@@ -154,10 +167,14 @@ class Engine:
         elif _is_xception(base):
             self.family = "xception"
             quarter, self.fused = xception_variant(base)
+        elif base in DEEPLAB:
+            self.family, quarter = "deeplab", base == "deeplab_q"
+        elif base in UNETS:
+            self.family = "unet"
         elif base not in EXECUTORS:
-            raise NotImplementedError(
-                f"model {name!r} is not ported yet; the port has "
-                f"{EXECUTORS}, segformer[_b0|_b1|_b2|_b3][_q] and "
+            raise ValueError(
+                f"unknown model {name!r}; the port has {EXECUTORS}, "
+                f"{DEEPLAB}, {UNETS}, segformer[_b0|_b1|_b2|_b3][_q] and "
                 f"[deeplab_]xception[_q][_fs], each also with {W16}")
         self.base_name = base
         self.label_scale = 4 if quarter else 1
@@ -167,20 +184,36 @@ class Engine:
         self.dtype = getattr(torch, cfg.dtype)
         self.remap_table = remap.remap_table(cfg.num_classes)
         self.seed = seed
-        # In bf16 on the card SegFormer's whole-batch forward gives a frame
-        # other logits than it gets alone (its first conv already differs);
-        # ENet's and Xception's give the same logits (at most an ENet
+        # In bf16 on the card SegFormer's and UNet's whole-batch forwards
+        # give a frame other logits than it gets alone (SegFormer's first
+        # conv, UNet's enc2.conv0 already differ); ENet's, Xception's and
+        # the MobileNetV2 DeepLab's give the same logits (at most an ENet
         # deconv's intermediate differs), and frame by frame would cost
-        # them 1.2-2.7x a 4-frame batch's time (measured with
+        # them 1.2-3x a 4-frame batch's time (measured with
         # scripts/torch_batch_invariance.py).
-        self.frame_by_frame = self.family == "segformer"
+        self.frame_by_frame = self.family in ("segformer", "unet")
         self.load_variables(variables)
 
     def load_variables(self, variables: Optional[Mapping]) -> None:
         """Swap in weights: a Flax-layout tree, a port state dict, or None
         (random from the engine's seed); ``_w16`` rounds them to bf16."""
+        quarter = "quarter" if self.label_scale == 4 else "full"
         if self.family == "segformer":
-            self._load_segformer(variables)
+            self._load_module(
+                SegFormer.preset(self.size, num_classes=self.cfg.num_classes,
+                                 head_upsample=quarter),
+                segformer_state_dict,
+                lambda seed, num_classes: random_segformer_variables(
+                    seed, self.size, num_classes), variables)
+            return
+        if self.family == "deeplab":
+            self._load_module(DeepLabV3(self.cfg.num_classes, quarter),
+                              deeplab_state_dict, random_deeplab_variables,
+                              variables)
+            return
+        if self.family == "unet":
+            self._load_module(UNet(self.cfg.num_classes), unet_state_dict,
+                              random_unet_variables, variables)
             return
         if self.family == "xception":
             self._load_xception(variables)
@@ -203,15 +236,16 @@ class Engine:
         self.module = enet
         self.forward_fn = forward
 
-    def _load_segformer(self, variables: Optional[Mapping]) -> None:
-        model = SegFormer.preset(
-            self.size, num_classes=self.cfg.num_classes,
-            head_upsample="quarter" if self.label_scale == 4 else "full")
+    def _load_module(self, model, to_state_dict: Callable,
+                     make_random: Callable,
+                     variables: Optional[Mapping]) -> None:
+        """Load a Flax tree (through its bridge), a state dict or seeded
+        weights into ``model``, move it to the device and cast its convs
+        to the compute dtype."""
         if variables is None:
-            variables = random_segformer_variables(
-                self.seed, self.size, self.cfg.num_classes)
-        sd = (segformer_state_dict(variables) if "params" in variables
-              else variables)
+            variables = make_random(self.seed,
+                                    num_classes=self.cfg.num_classes)
+        sd = to_state_dict(variables) if "params" in variables else variables
         model.load_state_dict(_round_bf16(sd) if self.weights_bf16 else sd)
         self.module = model.to(self.device).eval().to_compute_dtype(
             self.dtype)
@@ -309,11 +343,11 @@ def build_engine(name: str = "enet",
                  variables: Optional[Mapping] = None,
                  device="cuda", seed: int = 0) -> Engine:
     """Engine by name: ``"enet"``, ``"enet_fused"``,
-    ``"segformer[_b0|_b1|_b2|_b3][_q]"`` or ``"[deeplab_]xception[_q][_fs]"``,
-    each optionally with ``_w16`` (the others of the JAX package's zoo come
-    with later slices).
-    SegFormer defaults to 1024x1024 and Xception to 1024x512 (W x H), as
-    the JAX package's."""
+    ``"segformer[_b0|_b1|_b2|_b3][_q]"``, ``"[deeplab_]xception[_q][_fs]"``,
+    ``"deeplab[_q]"``, ``"unet"`` or ``"unet_ph"``, each optionally with
+    ``_w16`` (the JAX package's ``_int8`` and ``_hc`` variants come with a
+    later slice).  SegFormer defaults to 1024x1024, both DeepLabs to
+    1024x512 and UNet to 512x256 (W x H), as the JAX package's."""
     name = name.lower()
     if cfg is None:
         base, _ = _split_w16(name)
@@ -323,10 +357,16 @@ def build_engine(name: str = "enet",
         elif _is_xception(base):
             cfg = ModelConfig(name="deeplab_xception", input_width=1024,
                               input_height=512, num_classes=15)
+        elif base in DEEPLAB:
+            cfg = ModelConfig(name=base, input_width=1024, input_height=512,
+                              num_classes=15)
+        elif base in UNETS:
+            cfg = ModelConfig(name="unet", input_width=512, input_height=256,
+                              num_classes=15)
         else:
             cfg = ModelConfig(name=base)
     return Engine(name, cfg, variables=variables, device=device, seed=seed)
 
 
 __all__ = ["Engine", "build_engine", "frames_to_device", "segformer_variant",
-           "xception_variant", "EXECUTORS"]
+           "xception_variant", "EXECUTORS", "DEEPLAB", "UNETS"]

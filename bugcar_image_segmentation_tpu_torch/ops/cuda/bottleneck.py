@@ -25,7 +25,8 @@ weights.  :func:`plan` says how a launch is cut.
 
 from __future__ import annotations
 
-from typing import Mapping, Optional, Sequence, Tuple, Union
+from typing import (List, Mapping, NamedTuple, Optional, Sequence, Tuple,
+                    Union)
 
 import torch
 import torch.nn.functional as F
@@ -54,18 +55,11 @@ def _prelu(v: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     return torch.where(v >= 0, v, a * v)
 
 
-def fused_bottleneck_ref(x: torch.Tensor,
-                         wp: torch.Tensor, s1: torch.Tensor,
-                         b1: torch.Tensor, a1: torch.Tensor,
-                         wcore: Core,
-                         s2: torch.Tensor, b2: torch.Tensor,
-                         a2: torch.Tensor,
-                         we: torch.Tensor, s3: torch.Tensor,
-                         b3: torch.Tensor, ao: torch.Tensor,
-                         *, kind: str = "regular",
-                         dilation: int = 1) -> torch.Tensor:
-    """The plain PyTorch version of the kernel: same arguments, same
-    rounding points, convolutions by ``F.conv2d`` in f32."""
+def _plain_values(x: torch.Tensor, wp, s1, b1, a1, wcore: Core, s2, b2,
+                  a2, we, s3, b3, ao, *, kind: str, dilation: int) -> dict:
+    """The plain version's values at the rounding points, NCHW f32 (as
+    x's dtype holds them; "out" not yet rounded): "y1", "z" (asymmetric),
+    "y2", "out"."""
     if kind not in KINDS:
         raise ValueError(f"unknown bottleneck kind {kind!r}")
     dt = x.dtype
@@ -79,19 +73,209 @@ def fused_bottleneck_ref(x: torch.Tensor,
 
     xf = x.float().permute(0, 3, 1, 2)
     y1 = F.conv2d(xf, q(wp).t().reshape(mid, c, 1, 1))
-    y1 = q(_prelu(y1 * vec(s1) + vec(b1), vec(a1)))
+    out = {"y1": q(_prelu(y1 * vec(s1) + vec(b1), vec(a1)))}
     if kind == "asymmetric":
         w51, w15 = wcore
-        z = q(F.conv2d(y1, q(w51).permute(3, 2, 0, 1), padding=(2, 0)))
-        acc = F.conv2d(z, q(w15).permute(3, 2, 0, 1), padding=(0, 2))
+        out["z"] = q(F.conv2d(out["y1"], q(w51).permute(3, 2, 0, 1),
+                              padding=(2, 0)))
+        acc = F.conv2d(out["z"], q(w15).permute(3, 2, 0, 1), padding=(0, 2))
     else:
         d = int(dilation)
-        acc = F.conv2d(y1, q(wcore).permute(3, 2, 0, 1), padding=d,
+        acc = F.conv2d(out["y1"], q(wcore).permute(3, 2, 0, 1), padding=d,
                        dilation=d)
-    y2 = q(_prelu(acc * vec(s2) + vec(b2), vec(a2)))
+    y2 = out["y2"] = q(_prelu(acc * vec(s2) + vec(b2), vec(a2)))
     y3 = F.conv2d(y2, q(we).t().reshape(c, mid, 1, 1)) * vec(s3) + vec(b3)
-    out = _prelu(y3 + xf, vec(ao))
-    return out.to(dt).permute(0, 2, 3, 1).contiguous()
+    out["out"] = _prelu(y3 + xf, vec(ao))
+    return out
+
+
+def fused_bottleneck_ref(x: torch.Tensor,
+                         wp: torch.Tensor, s1: torch.Tensor,
+                         b1: torch.Tensor, a1: torch.Tensor,
+                         wcore: Core,
+                         s2: torch.Tensor, b2: torch.Tensor,
+                         a2: torch.Tensor,
+                         we: torch.Tensor, s3: torch.Tensor,
+                         b3: torch.Tensor, ao: torch.Tensor,
+                         *, kind: str = "regular",
+                         dilation: int = 1) -> torch.Tensor:
+    """The plain PyTorch version of the kernel: same arguments, same
+    rounding points, convolutions by ``F.conv2d`` in f32."""
+    out = _plain_values(x, wp, s1, b1, a1, wcore, s2, b2, a2, we, s3, b3,
+                        ao, kind=kind, dilation=dilation)["out"]
+    return out.to(x.dtype).permute(0, 2, 3, 1).contiguous()
+
+
+# -- the bf16 kernel's own arithmetic, plain ----------------------------------
+#
+# The bf16 kernel rounds y1, the 5x1 result z, y2 and the output to bf16 where
+# the TPU kernel rounds them, each value the one an f32 FMA chain over the
+# input channels in order (taps row by row) gives.  It sums on the tensor
+# cores and settles every rounding with an error bound against that chain,
+# recomputing by the chain what the bound cannot settle, so its bits are the
+# chain's: :func:`fused_bottleneck_chain` computes them in plain torch.
+
+ERR_ABS, ERR_ACC = 2 ** -17, 2 ** -18   # csrc/fused_bottleneck.cu kErr*
+
+
+class RoundingPoint(NamedTuple):
+    """One bf16 rounding point of the kernel: the f32 sum of ``inputs``
+    (..., K) @ ``weights`` (K, N), then ``v * scale + bias`` (an f32 FMA;
+    None: nothing), ``+ residual`` (or None), PReLU by ``slope`` (or None),
+    rounded to bf16 (``value``, as f32; not kept for the output)."""
+
+    name: str
+    inputs: torch.Tensor
+    weights: torch.Tensor
+    scale: Optional[torch.Tensor]
+    bias: Optional[torch.Tensor]
+    residual: Optional[torch.Tensor]
+    slope: Optional[torch.Tensor]
+    value: Optional[torch.Tensor] = None    # the chain's bf16 result
+
+    def finish(self, acc: torch.Tensor) -> torch.Tensor:
+        """The f32 sum → the value before the bf16 rounding, in f32 steps
+        as the kernel takes them (in f64 for an f64 ``acc``)."""
+        v = acc
+        if self.scale is not None:
+            v = (v.double() * self.scale.double() + self.bias.double()
+                 ).to(acc.dtype)
+        if self.residual is not None:
+            v = v + self.residual.to(acc.dtype)
+        return v if self.slope is None else _prelu(v, self.slope.to(v.dtype))
+
+
+def _bf(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.bfloat16).float()
+
+
+def _fma_chain(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a (..., K) @ w (K, N) as an f32 FMA chain over K in order: each step
+    the exact product plus the sum in f64, rounded to f32."""
+    a64, w64 = a.double(), w.double()
+    acc = torch.zeros(*a.shape[:-1], w.shape[1], device=a.device)
+    for k in range(w.shape[0]):
+        acc = (a64[..., k:k + 1] * w64[k] + acc.double()).float()
+    return acc
+
+
+def _core_inputs(y: torch.Tensor, wcore: Core, kind: str, dilation: int,
+                 half: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The core's inputs (N, H, W, taps * C) in the kernel's order (taps
+    row by row, then channels) and its (taps * MID, MID) weights rounded to
+    bf16; for asymmetric, half 0 is the 5x1 over y1 and half 1 the 1x5 over
+    z.  Works on any channel count C (a mask too)."""
+    n, h, w, _ = y.shape
+    if kind == "asymmetric":
+        wk = _bf(wcore[half].reshape(5 * MID, MID))
+        if half == 0:
+            yp = F.pad(y, (0, 0, 0, 0, 2, 2))
+            return torch.cat([yp[:, k:k + h] for k in range(5)], -1), wk
+        yp = F.pad(y, (0, 0, 2, 2))
+        return torch.cat([yp[:, :, k:k + w] for k in range(5)], -1), wk
+    d = int(dilation)
+    yp = F.pad(y, (0, 0, d, d, d, d))
+    return torch.cat([yp[:, ky * d:ky * d + h, kx * d:kx * d + w]
+                      for ky in range(3) for kx in range(3)], -1), \
+        _bf(wcore).reshape(-1, MID)
+
+
+def chain_points(x: torch.Tensor, wp, s1, b1, a1, wcore: Core, s2, b2, a2,
+                 we, s3, b3, ao, *, kind: str = "regular", dilation: int = 1
+                 ) -> List[RoundingPoint]:
+    """The bf16 kernel's rounding points in order (y1, [z,] y2, out), each
+    fed by the chain's bf16 values of the points before it."""
+    if kind not in KINDS:
+        raise ValueError(f"unknown bottleneck kind {kind!r}")
+    xf = x.float()
+    pts: List[RoundingPoint] = []
+
+    def add(*point) -> torch.Tensor:
+        p = RoundingPoint(*point)
+        p = p._replace(value=_bf(p.finish(_fma_chain(p.inputs, p.weights))))
+        pts.append(p)
+        return p.value
+
+    y1 = add("y1", xf, _bf(wp), s1, b1, None, a1)
+    inp, wk = _core_inputs(y1, wcore, kind, dilation)
+    if kind == "asymmetric":
+        z = add("z", inp, wk, None, None, None, None)
+        inp, wk = _core_inputs(z, wcore, kind, dilation, half=1)
+    y2 = add("y2", inp, wk, s2, b2, None, a2)
+    pts.append(RoundingPoint("out", y2, _bf(we), s3, b3, xf, ao))
+    return pts
+
+
+def fused_bottleneck_chain(x: torch.Tensor, *args, kind: str = "regular",
+                           dilation: int = 1) -> torch.Tensor:
+    """The bf16 kernel's output, bit for bit, in plain torch: the
+    arguments of :func:`fused_bottleneck` (bf16 ``x``; ``packed`` aside),
+    every rounding point an f32 FMA chain (:func:`chain_points`).  Slow:
+    one small op per input channel and tap."""
+    out = chain_points(x, *args, kind=kind, dilation=dilation)[-1]
+    return out.finish(_fma_chain(out.inputs, out.weights)).to(torch.bfloat16)
+
+
+def _ambiguous(p: RoundingPoint) -> torch.Tensor:
+    """Where the point's bf16 rounding is ambiguous: an f32 sum within the
+    kernel's settle bound E = 2^-17 A + 2^-18 Q of the exact sum (A =
+    sum |products|, Q = sum of |running sum| at the k16 steps) may round
+    to other bits, or lies astride 0 where a PReLU follows.  Computed in
+    f64; the f32 epilogue's own roundings widen the interval by 2^-22."""
+    a, w = p.inputs.double(), p.weights.double()
+    exact = a @ w
+    big_a = a.abs() @ w.abs()
+    part = torch.zeros_like(exact)
+    q = torch.zeros_like(exact)
+    for k0 in range(0, w.shape[0], 16):
+        part = part + a[..., k0:k0 + 16] @ w[k0:k0 + 16]
+        q = q + part.abs()
+    e = ERR_ABS * big_a + ERR_ACC * q
+    pre = p._replace(slope=None)
+    ends = torch.stack([pre.finish(exact - e), pre.finish(exact + e)])
+    lo, hi = ends.min(0).values, ends.max(0).values
+    lo, hi = lo - 2 ** -22 * lo.abs(), hi + 2 ** -22 * hi.abs()
+    astride = (lo < 0) & (hi > 0) if p.slope is not None else False
+    if p.slope is not None:
+        lo, hi = (_prelu(t, p.slope.double()) for t in (lo, hi))
+    return astride | (lo.float().bfloat16() != hi.float().bfloat16())
+
+
+def rounds_apart(x: torch.Tensor, *args, kind: str = "regular",
+                 dilation: int = 1) -> Tuple[torch.Tensor, dict]:
+    """Where and why the plain version (:func:`fused_bottleneck_ref`)
+    rounds apart from the bf16 kernel (the chain, :func:`chain_points`),
+    for the arguments of :func:`fused_bottleneck` (bf16 ``x``).
+
+    At each rounding point before the output (y1, z, y2), an element whose
+    bf16 value differs between the two is explained where the kernel's
+    rounding of it is ambiguous (:func:`_ambiguous`, recomputed in f64) or
+    where a value it reads already differs.  An output leaves the plain
+    one by more than a few bf16 ulps only through a y2 of its pixel that
+    differs: through the expansion and a residual that nearly cancels.
+
+    Returns ((N, H, W) bool: the pixels with a y2 that differs; {point:
+    {"apart": elements that differ, "unexplained": of those, the ones
+    neither ambiguous nor fed by one that differs}})."""
+    pts = chain_points(x, *args, kind=kind, dilation=dilation)
+    plain = _plain_values(x, *args, kind=kind, dilation=dilation)
+    counts = {}
+    upstream = torch.zeros(*x.shape[:3], 1, dtype=torch.bool,
+                           device=x.device)
+    for p in pts[:-1]:
+        apart = plain[p.name].permute(0, 2, 3, 1) != p.value
+        lone = apart & ~_ambiguous(p) & ~upstream
+        counts[p.name] = {"apart": int(apart.sum()),
+                          "unexplained": int(lone.sum())}
+        here = apart.any(-1, keepdim=True)
+        if p.name == "y2":
+            return here[..., 0], counts
+        # the next point reads this one through the core's window: the
+        # 3x3 (or the 5x1) over y1, the 1x5 over z
+        feeds = _core_inputs(here.float(), args[4], kind, dilation,
+                             half=int(p.name == "z"))[0]
+        upstream = feeds.amax(-1, keepdim=True) > 0
+    raise ValueError("no y2 rounding point")
 
 
 def _need(cond: bool, msg: str) -> None:
@@ -315,4 +499,6 @@ def fused_bottleneck(x: torch.Tensor,
 
 
 __all__ = ["fused_bottleneck", "fused_bottleneck_ref", "fold_bn",
-           "launch_args", "pack_weights", "pack_elems", "plan", "KINDS"]
+           "fused_bottleneck_chain", "chain_points", "rounds_apart",
+           "RoundingPoint", "launch_args", "pack_weights", "pack_elems",
+           "plan", "KINDS"]

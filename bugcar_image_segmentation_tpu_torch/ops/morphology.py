@@ -1,9 +1,9 @@
 """Grayscale/binary morphology via shifted-slice min/max chains.
 
 Mirrors ``bugcar_image_segmentation_tpu/ops/morphology.py``: cv2.erode /
-dilate / MORPH_OPEN with an all-ones rectangular kernel and OpenCV's
-default border (the border never constrains the reduction: pad with the
-reduction's identity).  Works on (..., H, W) tensors of any dtype.
+dilate / MORPH_OPEN / MORPH_CLOSE with an all-ones rectangular kernel and
+OpenCV's default border (the border never constrains the reduction: pad
+with the reduction's identity).  Works on (..., H, W) tensors of any dtype.
 """
 
 from __future__ import annotations
@@ -59,4 +59,11 @@ def morph_open(x: torch.Tensor, ksize: Tuple[int, int] = (3, 3)
     return dilate(erode(x, ksize), ksize)
 
 
-__all__ = ["erode", "dilate", "morph_open"]
+def morph_close(x: torch.Tensor, ksize: Tuple[int, int] = (3, 3)
+                ) -> torch.Tensor:
+    """Dilation then erosion (cv2.MORPH_CLOSE, reference
+    image_processing_utils.py:9)."""
+    return erode(dilate(x, ksize), ksize)
+
+
+__all__ = ["erode", "dilate", "morph_open", "morph_close"]

@@ -7,7 +7,12 @@ reference's ``inference_video.py`` hot loop, SURVEY.md §3.1):
     → BEV warp → morph-open → cell binning → int8 grid
 
 all on the engine's device; a raw frame goes in and an int8 grid comes
-out.  Batches run through the backbone in chunks of at most 4 frames.
+out.  Options, as in the JAX package: CLAHE on the camera frame before the
+backbone (``use_clahe``), the footwell-connectivity road filter on the
+label map (``contour_filter``; ``postproc.py``), and laserscan
+calibrations (the grid ray-cast through polar plans; binary mode returns
+the (plain, ray-cast) pair stacked as a (2, H, W) grid).  Batches run
+through the backbone in chunks of at most 4 frames.
 ``stream()`` keeps ``depth`` frames in flight: CUDA launches are
 asynchronous, so the host prepares frame N+1 while the device computes
 frame N, and results are fetched ``sync_chunk`` grids per device→host
@@ -23,31 +28,29 @@ Two transports, as in the JAX package:
   device converts it back to BGR, frame by frame, inside the program.
   This is the path ``bench.py`` measures.
 
-CLAHE, the contour filter and laserscan grids raise
-``NotImplementedError``: they come with later slices.
+:class:`MultiCameraPipeline` (BASELINE config 4) runs N cameras through
+the backbone as one batch, builds one grid per camera, each with its own
+calibration into the shared vehicle grid, and merges them by elementwise
+max (:func:`stitch_grids`).
 """
 
 from __future__ import annotations
 
 import time
-from typing import Iterable, Iterator, List, Optional, Tuple
+from typing import Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from . import postproc
 from .configs import CalibrationConfig, GridConfig, RuntimeConfig
 from .grid import OccupancyGridBuilder
+from .models import remap
 from .models.api import Engine, frames_to_device
 from .ops import yuv
 from .ops.host_resize import resize_linear
 
 CHUNK = 4   # most frames one backbone batch runs
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (a later slice of the PyTorch port; "
-        f"see ROADMAP.md Queue 1)")
 
 
 class Pipeline:
@@ -60,6 +63,11 @@ class Pipeline:
       grid_cfg: metric grid geometry.
       mode: "multiclass" or "binary" (reference bev.py:166 / 97).
       interpolation: warp parity mode (see grid.py).
+      use_clahe: CLAHE (``postproc.clahe``) on each frame on the device,
+        before the backbone.
+      contour_filter: demote road regions not connected to the bottom
+        strip (``postproc.contour_noise_removal``) to flat-non-road
+        (multiclass) or drop them (binary), at input resolution.
       host_resize: resize camera frames to the model's resolution on the
         host, before the host→device copy.
       transport: "bgr" or "i420" (see the module docstring).
@@ -86,13 +94,9 @@ class Pipeline:
         if transport == "i420" and not host_resize:
             # The planes are packed at model resolution on the host.
             raise ValueError("transport='i420' requires host_resize=True")
-        if use_clahe:
-            raise _not_ported("use_clahe=True")
-        if contour_filter:
-            raise _not_ported("contour_filter=True")
-        if cal.laserscan:
-            raise _not_ported("a laserscan calibration")
         self.engine = engine
+        self.use_clahe = use_clahe
+        self.contour_filter = contour_filter
         self.mode = mode
         self.device = engine.device
         self.transport = transport
@@ -100,10 +104,12 @@ class Pipeline:
         self._model_hw = got
         # A quarter-resolution head and the native grid compose: the
         # cell-centre warp samples the head's small label map directly
-        # (grid.py ``label_scale``); other modes take the lifted map.
+        # (grid.py ``label_scale``); other modes, and the contour filter,
+        # which runs at input resolution, take the lifted map.
         self.builder = OccupancyGridBuilder(
             cal, grid_cfg, mode=mode, interpolation=interpolation,
-            label_scale=(engine.label_scale if interpolation == "native"
+            label_scale=(engine.label_scale
+                         if interpolation == "native" and not contour_filter
                          else 1),
             device=self.device)
         self.default_depth = 2
@@ -154,8 +160,9 @@ class Pipeline:
     @torch.no_grad()
     def _program(self, frames: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Uploaded frames (K ≤ 4) → ((K, gh, gw) int8 grids, (K, h, w)
-        uint8 segmentation maps), on the device."""
+        """Uploaded frames (K ≤ 4) → ((K, gh, gw) int8 grids, or (K, 2,
+        gh, gw) in binary laserscan mode; (K, h, w) uint8 segmentation
+        maps), on the device."""
         if frames.shape[0] > CHUNK:
             raise ValueError(f"a chunk holds at most {CHUNK} frames, got "
                              f"{frames.shape[0]}")
@@ -163,10 +170,27 @@ class Pipeline:
             # frame by frame, as the JAX program converts a chunk
             frames = torch.stack([yuv.i420_to_bgr(f, self._model_hw)
                                   for f in frames])
+        if self.use_clahe:
+            frames = postproc.clahe(frames)
         heads = self.engine.segment_head(frames, self.mode)
         segs = self.engine.to_input_res(heads)
+        if self.contour_filter:
+            road = (segs == remap.ROAD).to(torch.uint8)
+            kept = postproc.contour_noise_removal(road)
+            if self.mode == "multiclass":
+                segs = torch.where((road == 1) & (kept == 0),
+                                   torch.full_like(segs, remap.FLAT_NON_ROAD),
+                                   segs)
+            else:
+                segs = kept
         src = heads if self.builder.label_scale > 1 else segs
-        return self.builder.build(src), segs
+        grids = self.builder.build(src)
+        if isinstance(grids, tuple):
+            # binary + laserscan: (plain, ray-cast), stacked so that
+            # batches and streams carry one tensor (grid[..., 0, :, :]
+            # plain, grid[..., 1, :, :] ray-cast)
+            grids = torch.stack(grids, dim=-3)
+        return grids, segs
 
     def _program_batch(self, frames: torch.Tensor) -> torch.Tensor:
         """Uploaded frames → grids, the backbone in chunks of ≤ 4."""
@@ -263,4 +287,54 @@ class Pipeline:
         return time.perf_counter() - t0
 
 
-__all__ = ["Pipeline", "CHUNK"]
+class MultiCameraPipeline:
+    """N cameras → one stitched vehicle grid (BASELINE config 4).
+
+    Each camera has its own calibration (its own homography into the
+    shared vehicle grid); the frames run through the backbone as one batch
+    (frame by frame where :attr:`Engine.frame_by_frame` says so), one
+    multiclass grid is built per camera, and the grids merge by elementwise
+    max (:func:`stitch_grids`).  A quarter-resolution head with the native
+    grid reads the small label maps, as :class:`Pipeline` does.
+    """
+
+    def __init__(self,
+                 engine: Engine,
+                 cals: Sequence[CalibrationConfig],
+                 grid_cfg: GridConfig,
+                 interpolation: str = "cv2_linear"):
+        if not cals:
+            raise ValueError("need at least one calibration")
+        self.engine = engine
+        scale = engine.label_scale if interpolation == "native" else 1
+        self.builders = [OccupancyGridBuilder(c, grid_cfg,
+                                              interpolation=interpolation,
+                                              label_scale=scale,
+                                              device=engine.device)
+                         for c in cals]
+        if len({(b.geom.cells_h, b.geom.cells_w)
+                for b in self.builders}) != 1:
+            raise ValueError("all cameras must share the grid geometry")
+
+    @torch.no_grad()
+    def __call__(self, frames_bgr) -> torch.Tensor:
+        """(N_cam, H, W, 3) uint8 BGR → stitched int8 grid, on the
+        engine's device."""
+        frames = frames_to_device(frames_bgr, self.engine.device)
+        if frames.dim() != 4 or frames.shape[0] != len(self.builders):
+            raise ValueError(f"want ({len(self.builders)}, H, W, 3) frames, "
+                             f"one per camera; got {tuple(frames.shape)}")
+        segs = self.engine.segment_head(frames)
+        if self.builders[0].label_scale == 1:
+            segs = self.engine.to_input_res(segs)
+        return stitch_grids(torch.stack([b.build(segs[k]) for k, b in
+                                         enumerate(self.builders)]))
+
+
+def stitch_grids(grids: torch.Tensor) -> torch.Tensor:
+    """Merge per-camera int8 grids (N, H, W): occupied (100) > free (0) >
+    unknown (-1), which elementwise max implements."""
+    return grids.amax(0)
+
+
+__all__ = ["Pipeline", "MultiCameraPipeline", "stitch_grids", "CHUNK"]

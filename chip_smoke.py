@@ -14,9 +14,14 @@ phase with its elapsed seconds:
    source, all started together) into one library in ``build/kernels/``.
 3. ``kernels``— ``fused_bottleneck`` on every ENet trunk block (all kinds
    and dilations) at the ENet path's shape (N = 1 and 4, 32x64x128, mid
-   32), on the real trunk activations of a seeded ENet, held against its
-   plain PyTorch version in bfloat16 and in float32 (TF32 off), and timed
-   with CUDA events; each record carries its launch plan (kernel, CTAs,
+   32), on the real trunk activations of a seeded ENet: in float32 (TF32
+   off) held against its plain PyTorch version (frames 0 and 0-3); in
+   bfloat16 on five frame sets (0, 0-3, 4-7, 8-11, 12-15) held bit for bit
+   to ``fused_bottleneck_chain`` (the kernel's stated arithmetic), and to
+   the plain version under the bf16 budget, where each output over it must
+   be explained by a flipped ambiguous rounding (``rounds_apart``) and
+   their count stays under a cap (``bottleneck_gate`` lines); timed with
+   CUDA events; each record carries its launch plan (kernel, CTAs,
    threads, output pixels a CTA, the y1 tile a CTA projects).
 4. ``path``   — ``build_engine("enet_fused")`` with seeded weights (a
    Flax-layout numpy tree through the weight bridge) and ``Pipeline`` at
@@ -79,6 +84,25 @@ phase with its elapsed seconds:
    around that run; then each kernel at the probes' (16, 64, 128) shapes
    held bit-equal to its plain version and timed beside it, the PyTorch
    call that computes the same function and its bytes bound.
+11. ``deeplab_path`` — ``build_engine("deeplab")`` and ``"deeplab_q"`` (the
+   MobileNetV2 DeepLab at 1024x512, 15 classes, bf16, seeded weights;
+   ``_q`` on the native grid) through ``Pipeline``: single, stream and
+   4-frame batch grids equal, no kernel launched, a label histogram, f32
+   on the card against the CPU, device-busy ms per frame and the speed
+   numbers.
+12. ``unet_path`` — the same for ``build_engine("unet")`` at 512x256 (the
+   backbone frame by frame, ``Engine.frame_by_frame``).
+13. ``rig_path`` — ``MultiCameraPipeline`` with 4 cameras at 512x256
+   (distinct yaws) on ``enet_fused_w16`` (the bottleneck kernel at N = 4)
+   and ``enet_w16``, with ``cv2_linear`` and ``native`` grids: the
+   stitched grid equal to the max of the per-camera ``Pipeline`` grids,
+   the kernel engine's cells against the plain one's, f32 on the card
+   against the CPU, rig ms (4 cameras) beside one camera's ms, device
+   busy per rig frame.
+14. ``grid_options`` — on ``enet_fused`` (bf16): laserscan grids
+   (multiclass; binary, a (2, 80, 80) pair), ``use_clahe`` and
+   ``contour_filter``, each with single, stream and batch grids equal,
+   f32 grids on the card against the CPU, device busy and speed.
 
 Every path's grids of one frame alone, in a batch and in a stream must be
 equal, in bf16 too (SegFormer's engines run the backbone frame by frame,
@@ -114,6 +138,16 @@ TOL = {"float32": (2e-4, 2e-4),      # the JAX package's f32 budget
 # own attention tolerance); bfloat16 one ulp of the output (both compute in
 # f32 from the same operands and round once).
 ATTN_TOL = {"float32": (2e-5, 0.0), "bfloat16": (1e-5, 2 ** -7)}
+# The bf16 bottleneck gate's frame sets, (first frame, frames): frame 0
+# alone, then 0-3, 4-7, 8-11 and 12-15, each block fed the plain version's
+# output of the block before (scripts/torch_bottleneck_rounding.py's sets).
+# On each the kernel must equal fused_bottleneck_chain bit for bit, and an
+# output over TOL["bfloat16"] against the plain version (cuDNN's f32 sums) is
+# accepted only at a pixel whose y2 rounds apart, every value that rounds
+# apart being ambiguous or fed by one that does (rounds_apart); at most this
+# many such outputs on one set (pinned from the five sets on the card).
+BOTTLENECK_FRAME_SETS = [(0, 1), (0, 4), (4, 4), (8, 4), (12, 4)]
+BOTTLENECK_ATTRIBUTED_CAP = 4     # measured at most 2 (frames 4-7)
 # Share of equal labels / grid cells, kernel vs plain engine on the card
 # in bf16: the two round at different points (the kernel keeps f32 between
 # its stages), so argmax near-ties of the seeded random weights flip; a
@@ -152,6 +186,10 @@ SEP_SITES = [("block1.sep0", 256, 512, 64, 128, 1, True, 1),
              ("block3.sep2 (plain on the path)", 64, 128, 728, 728, 2,
               False, 0)]
 SEP_PER_FRAME = sum(site[-1] for site in SEP_SITES)     # 55
+DEEPLAB_HW = (512, 1024)   # the MobileNetV2 DeepLab's 1024x512 default
+UNET_HW = (256, 512)       # UNet's 512x256 default
+RIG_YAWS = (-0.6, -0.2, 0.2, 0.6)   # the 4-camera rig's cameras (radians)
+RIG_GRIDS = ("cv2_linear", "native")
 # bench.py's path: frames in the latency and the sustained runs, passes
 BENCH_LATENCY_FRAMES = 20
 BENCH_STREAM_FRAMES = 100
@@ -329,7 +367,8 @@ def enet_phases(lib, smi: str, dev) -> dict:
     from bugcar_image_segmentation_tpu_torch.models import preprocess as pre
     from bugcar_image_segmentation_tpu_torch.ops import cuda as kcuda
     from bugcar_image_segmentation_tpu_torch.ops.cuda.bottleneck import (
-        fused_bottleneck_ref, launch_args, plan)
+        fused_bottleneck_chain, fused_bottleneck_ref, launch_args, plan,
+        rounds_apart)
 
     # -- weights, frames, engines --------------------------------------------
     t = time.perf_counter()
@@ -349,13 +388,18 @@ def enet_phases(lib, smi: str, dev) -> dict:
     t = time.perf_counter()
     per_block = []
     worst = {}
+    gates = []
     for dt in ("bfloat16", "float32"):
         fused = eng[("enet_fused", dt)]
         atol, rtol = TOL[dt]
-        for n in (1, 4):
+        sets = BOTTLENECK_FRAME_SETS if dt == "bfloat16" else [(0, 1), (0, 4)]
+        for f0, n in sets:
+            gate = {"frames": [f0, f0 + n], "bits_equal_chain": True,
+                    "over_budget_attributed": 0, "apart": {}}
             with torch.no_grad():
                 x = pre.preprocess_for_config(
-                    torch.as_tensor(np.stack(frames[:n])).to(dev), fused.cfg)
+                    torch.as_tensor(np.stack(frames[f0:f0 + n])).to(dev),
+                    fused.cfg)
                 x, _, _ = fused.module.encode(x)
                 x = x.permute(0, 2, 3, 1).contiguous()   # trunk input, NHWC
                 for i, blk in enumerate(fused.forward_fn.blocks):
@@ -363,26 +407,53 @@ def enet_phases(lib, smi: str, dev) -> dict:
                             blk.s2, blk.b2, blk.a2, blk.we, blk.s3, blk.b3,
                             blk.ao)
                     kw = dict(kind=blk.kind, dilation=blk.dilation)
+                    what = (f"fused_bottleneck {blk.kind} d={blk.dilation} "
+                            f"{dt} frames {f0}-{f0 + n - 1} (block {i})")
                     got = blk(x)
                     ref = fused_bottleneck_ref(x, *args, **kw)
                     torch.cuda.synchronize()
                     diff = (got.float() - ref.float()).abs()
-                    lim = atol + rtol * ref.float().abs()
+                    over = diff > atol + rtol * ref.float().abs()
                     err = float(diff.max())
                     if not bool(torch.isfinite(got.float()).all()):
-                        fail(f"kernel output not finite ({dt}, n={n}, "
-                             f"block {i})")
-                    if bool((diff > lim).any()):
-                        fail(f"fused_bottleneck {blk.kind} d={blk.dilation} "
-                             f"{dt} n={n}: max |err| {err} exceeds "
-                             f"{atol} + {rtol}*|ref|")
-                    key = (dt, n)
+                        fail(f"{what}: output not finite")
+                    if dt == "float32" and bool(over.any()):
+                        fail(f"{what}: max |err| {err} exceeds {atol} + "
+                             f"{rtol}*|ref|")
+                    if dt == "bfloat16":
+                        # (a) the kernel's stated arithmetic, bit for bit
+                        chain = fused_bottleneck_chain(x, *args, **kw)
+                        bits = int((got.view(torch.int16)
+                                    != chain.view(torch.int16)).sum())
+                        if bits:
+                            fail(f"{what}: {bits} outputs differ from "
+                                 f"fused_bottleneck_chain's bits")
+                        # (b) cuDNN's budget, every miss explained
+                        moved, counts = rounds_apart(x, *args, **kw)
+                        lone = {k: c["unexplained"]
+                                for k, c in counts.items()}
+                        if any(lone.values()):
+                            fail(f"{what}: the plain version rounds apart "
+                                 f"from the kernel without an ambiguous "
+                                 f"rounding (or a value read that "
+                                 f"differs) at {lone}")
+                        stray = int((over & ~moved[..., None]).sum())
+                        if stray:
+                            fail(f"{what}: {stray} outputs exceed {atol} + "
+                                 f"{rtol}*|ref| with every y2 of their "
+                                 f"pixel equal to the plain version's")
+                        gate["over_budget_attributed"] += int(over.sum())
+                        for k, c in counts.items():
+                            gate["apart"][k] = (gate["apart"].get(k, 0)
+                                                + c["apart"])
+                    key = (dt, f0, n)
                     worst[key] = max(worst.get(key, 0.0), err)
-                    rec = dict(dtype=dt, n=n, block=i, kind=blk.kind,
-                               dilation=blk.dilation, max_abs_err=err,
+                    rec = dict(dtype=dt, n=n, frames=[f0, f0 + n], block=i,
+                               kind=blk.kind, dilation=blk.dilation,
+                               max_abs_err=err,
                                plan=plan(n, x.shape[1], x.shape[2], blk.kind,
                                          blk.dilation, x.dtype))
-                    if dt == "bfloat16":
+                    if dt == "bfloat16" and f0 == 0:
                         xi, out = x, torch.empty_like(x)
                         raw, keep = launch_args(xi, out, *args, **kw,
                                                 packed=blk.packed)
@@ -397,6 +468,16 @@ def enet_phases(lib, smi: str, dev) -> dict:
                             n, x.shape[1], x.shape[2], blk.kind, dt)
                     per_block.append(rec)
                     x = ref
+            if dt == "bfloat16":
+                if gate["over_budget_attributed"] > BOTTLENECK_ATTRIBUTED_CAP:
+                    fail(f"fused_bottleneck bf16 frames {gate['frames']}: "
+                         f"{gate['over_budget_attributed']} outputs over "
+                         f"the budget, each at a flipped ambiguous "
+                         f"rounding; the cap is "
+                         f"{BOTTLENECK_ATTRIBUTED_CAP}")
+                gates.append(gate)
+                print(json.dumps({"phase": "bottleneck_gate", **gate}),
+                      flush=True)
     # the 16-launch trunk chain at the main path's shape (N=1, bf16)
     fused = eng[("enet_fused", "bfloat16")]
     with torch.no_grad():
@@ -442,7 +523,9 @@ def enet_phases(lib, smi: str, dev) -> dict:
     by_bytes = sum(b for b, by in bounds if by == "bytes")
     emit("kernels", seconds=round(time.perf_counter() - t, 3),
          tolerance={k: {"atol": v[0], "rtol": v[1]} for k, v in TOL.items()},
-         max_abs_err={f"{dt}/n={n}": e for (dt, n), e in worst.items()},
+         max_abs_err={f"{dt}/frames={f0}-{f0 + n - 1}": e
+                      for (dt, f0, n), e in worst.items()},
+         bf16_gate=gates,
          trunk_16_launches_ms=trunk_ms,
          trunk_through_wrapper_ms=trunk_wrapper_ms,
          trunk_plain_ms=trunk_plain_ms,
@@ -1265,6 +1348,288 @@ def probe_phase(lib, dev) -> list:
     return entries
 
 
+def model_path_phase(phase: str, smi: str, names, hw, random_variables,
+                     quarter=()) -> dict:
+    """A backbone the port runs without a kernel of its own (the
+    MobileNetV2 DeepLab, UNet), at full width, bf16, seeded weights,
+    through Pipeline (``quarter``: those engines on the native grid);
+    returns the phase line's fields."""
+    import numpy as np
+    import torch
+
+    import bugcar_image_segmentation_tpu_torch as port
+    from bugcar_image_segmentation_tpu_torch import synthetic
+    from bugcar_image_segmentation_tpu_torch.calibration import \
+        toy_calibration
+    from bugcar_image_segmentation_tpu_torch.ops import cuda as kcuda
+
+    t = time.perf_counter()
+    variables = random_variables(SEED)
+    frames = [f for f, _, _ in synthetic.video(
+        seed=SEED, num_frames=STREAM_FRAMES, shape=FRAME_HW)]
+    h, w = hw
+
+    def engine(name, dtype="bfloat16", device="cuda"):
+        cfg = port.ModelConfig(name=name, input_width=w, input_height=h,
+                               dtype=dtype)
+        return port.build_engine(name, cfg, variables=variables,
+                                 device=device)
+
+    grid_cfg = port.GridConfig(8.0, 8.0, 0.1)
+    cal = toy_calibration(hw)
+    pipes = {}
+    for name in names:
+        interp = "native" if name in quarter else "cv2_linear"
+        pipes[name] = port.Pipeline(engine(name), cal, grid_cfg,
+                                    interpolation=interp)
+        if name in quarter and pipes[name].builder.label_scale != 4:
+            fail(f"{name}'s native grid does not read the quarter-res "
+                 f"labels")
+    for p in pipes.values():
+        p.warmup(frames[0].shape)
+        p.run_batch(np.stack(frames[:4]))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t
+
+    want = (grid_cfg.cells_h, grid_cfg.cells_w)
+    out = {}
+    for name, p in pipes.items():
+        kcuda.reset_launches()
+        single = p(frames[0]).cpu().numpy()
+        streamed = np.stack(list(p.stream(iter(frames), depth=2)))
+        batched = p.run_batch(np.stack(frames[:4])).cpu().numpy()
+        if any(kcuda.LAUNCHES.values()):
+            fail(f"{name} launched kernels: {kcuda.LAUNCHES}")
+        check_grids(name, {"single": single[None], "stream": streamed,
+                           "batch": batched}, want)
+        same = {"single_vs_stream": float((single == streamed[0]).mean()),
+                "batch_vs_stream": float((batched == streamed[:4]).mean())}
+        check_batch_invariant(name, **same)
+        with torch.no_grad():
+            lab = p.engine.logits(np.stack(frames[:4])).argmax(-1)
+        share = (torch.bincount(lab.flatten(), minlength=p.engine.cfg
+                                .num_classes).float() / lab.numel()).tolist()
+        if max(share) > 0.99:
+            fail(f"{name}: one class takes {max(share)} of the pixels: the "
+                 f"seeded weights are degenerate")
+        out[name] = {"batch_invariance": same, "label_share": share,
+                     **check_f32_card_vs_cpu(name, engine(name, "float32"),
+                                             engine(name, "float32", "cpu"),
+                                             frames[0]),
+                     **device_busy(p, frames[:PROFILE_FRAMES])}
+    speed = speed_turns(list(pipes.items()), frames)
+    emit(phase, seconds=round(time.perf_counter() - t, 3),
+         setup_seconds=round(setup_s, 3), input_hw=list(hw),
+         grid_shape=list(want), engines=out, speed=speed, nvidia_smi=smi)
+    return out
+
+
+def rig_phase(smi: str) -> dict:
+    """The 4-camera rig (MultiCameraPipeline) on ENet at 512x256, bf16
+    weights, the kernel engine (the bottleneck at N = 4) against the plain
+    one, with cv2_linear and native grids; returns the launch counts of
+    its run."""
+    import numpy as np
+    import torch
+
+    import bugcar_image_segmentation_tpu_torch as port
+    from bugcar_image_segmentation_tpu_torch import synthetic
+    from bugcar_image_segmentation_tpu_torch.calibration import \
+        toy_calibration
+    from bugcar_image_segmentation_tpu_torch.convert.flax_enet import \
+        random_enet_variables
+    from bugcar_image_segmentation_tpu_torch.ops import cuda as kcuda
+
+    t = time.perf_counter()
+    variables = random_enet_variables(SEED)
+    frames = [f for f, _, _ in synthetic.video(
+        seed=SEED, num_frames=STREAM_FRAMES, shape=FRAME_HW)]
+    ncam = len(RIG_YAWS)
+    rig_frames = [np.stack(frames[i:i + ncam])
+                  for i in range(0, len(frames), ncam)]
+    hw = (256, 512)
+    cals = [toy_calibration(hw, yaw=y) for y in RIG_YAWS]
+    grid_cfg = port.GridConfig(8.0, 8.0, 0.1)
+
+    def engine(name, dtype="bfloat16", device="cuda"):
+        return port.build_engine(name, port.ModelConfig(name=name,
+                                                        dtype=dtype),
+                                 variables=variables, device=device)
+
+    names = ("enet_fused_w16", "enet_w16")
+    engines = {name: engine(name) for name in names}
+    rigs, cams = {}, {}
+    for name, eng in engines.items():
+        for interp in RIG_GRIDS:
+            rigs[name, interp] = port.MultiCameraPipeline(
+                eng, cals, grid_cfg, interpolation=interp)
+            cams[name, interp] = [port.Pipeline(eng, c, grid_cfg,
+                                                interpolation=interp)
+                                  for c in cals]
+    for key, rig in rigs.items():
+        rig(rig_frames[0]).cpu()
+        for i, p in enumerate(cams[key]):
+            p(rig_frames[0][i]).cpu()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t
+
+    stitched, launches = {}, {}
+    for name in names:
+        kcuda.reset_launches()
+        for interp in RIG_GRIDS:
+            stitched[name, interp] = np.stack(
+                [rigs[name, interp](f).cpu().numpy() for f in rig_frames])
+        launches[name] = dict(kcuda.LAUNCHES)
+    fused = launches["enet_fused_w16"]
+    want_fused = 16 * len(RIG_GRIDS) * len(rig_frames)   # one batch a frame
+    if fused["fused_bottleneck"] != want_fused or sum(fused.values()) \
+            != want_fused:
+        fail(f"the rig's enet_fused_w16 launched {fused}; expected "
+             f"{want_fused} fused_bottleneck launches and nothing else")
+    if any(launches["enet_w16"].values()):
+        fail(f"the rig's enet_w16 launched kernels: {launches['enet_w16']}")
+    want = (grid_cfg.cells_h, grid_cfg.cells_w)
+    same = {}
+    for key, grids in stitched.items():
+        check_grids(f"rig {key}", {"stitched": grids}, want)
+        per_cam = np.stack([np.stack([p(f[i]).cpu().numpy()
+                                      for i, p in enumerate(cams[key])])
+                            for f in rig_frames])
+        same["/".join(key)] = float((grids == per_cam.max(1)).mean())
+    check_batch_invariant("rig: stitched vs the max of the per-camera "
+                          "Pipeline grids", **same)
+    agree = {interp: float((stitched["enet_fused_w16", interp]
+                            == stitched["enet_w16", interp]).mean())
+             for interp in RIG_GRIDS}
+    if min(agree.values()) < AGREE_BF16:
+        fail(f"the rig's enet_fused_w16 vs enet_w16 (bf16): stitched cells "
+             f"agree {agree}; budget {AGREE_BF16}")
+    f32 = check_f32_card_vs_cpu(
+        "rig enet_fused_w16", engine("enet_fused_w16", "float32"),
+        engine("enet_w16", "float32", "cpu"),
+        synthetic.road_scene(np.random.default_rng(SEED), hw)[0])
+
+    def rig_ms(rig, r):
+        s = time.perf_counter()
+        rig(rig_frames[r % len(rig_frames)]).cpu()
+        return 1e3 * (time.perf_counter() - s)
+
+    def camera_ms(p, r):
+        s = time.perf_counter()
+        p(frames[r % len(frames)]).cpu()
+        return 1e3 * (time.perf_counter() - s)
+
+    runs = list(rigs)
+    samples = {key: {"rig_ms": [], "one_camera_ms": []} for key in runs}
+    for r in range(SPEED_ROUNDS * 2):
+        for key in (runs if r % 2 == 0 else runs[::-1]):
+            samples[key]["rig_ms"].append(rig_ms(rigs[key], r))
+            samples[key]["one_camera_ms"].append(camera_ms(cams[key][0], r))
+    speed = {}
+    for key, got in samples.items():
+        busy = device_busy(rigs[key], rig_frames)
+        speed["/".join(key)] = {
+            **{m: quartiles(v) for m, v in got.items()},
+            "rig_fps": 1e3 / quartiles(got["rig_ms"])["median"],
+            **{f"rig_{k}": v for k, v in busy.items()}}
+    emit("rig_path", seconds=round(time.perf_counter() - t, 3),
+         setup_seconds=round(setup_s, 3), cameras=ncam,
+         yaws=list(RIG_YAWS), input_hw=list(hw), rig_frames=len(rig_frames),
+         launches=launches, stitched_vs_per_camera_max=same,
+         cell_agree_bf16=agree, **f32, speed=speed, nvidia_smi=smi)
+    return fused
+
+
+def grid_options_phase(smi: str) -> dict:
+    """Laserscan grids (multiclass and binary), CLAHE and the contour
+    filter on ENet's kernel engine (bf16, 512x256) through Pipeline;
+    returns the launch counts of its run."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    import bugcar_image_segmentation_tpu_torch as port
+    from bugcar_image_segmentation_tpu_torch import synthetic
+    from bugcar_image_segmentation_tpu_torch.calibration import \
+        toy_calibration
+    from bugcar_image_segmentation_tpu_torch.convert.flax_enet import \
+        random_enet_variables
+    from bugcar_image_segmentation_tpu_torch.ops import cuda as kcuda
+
+    t = time.perf_counter()
+    variables = random_enet_variables(SEED)
+    frames = [f for f, _, _ in synthetic.video(
+        seed=SEED, num_frames=STREAM_FRAMES, shape=FRAME_HW)]
+    grid_cfg = port.GridConfig(8.0, 8.0, 0.1)
+    cal = toy_calibration((256, 512))
+    scan = dataclasses.replace(cal, laserscan=True)
+    options = {"laserscan_multiclass": (scan, {}),
+               "laserscan_binary": (scan, {"mode": "binary"}),
+               "clahe": (cal, {"use_clahe": True}),
+               "contour_filter": (cal, {"contour_filter": True})}
+
+    def pipeline(option, dtype="bfloat16", device="cuda"):
+        name = "enet_fused" if device == "cuda" else "enet"
+        eng = port.build_engine(name, port.ModelConfig(name=name,
+                                                       dtype=dtype),
+                                variables=variables, device=device)
+        c, kw = options[option]
+        return port.Pipeline(eng, c, grid_cfg, **kw)
+
+    pipes = {option: pipeline(option) for option in options}
+    for p in pipes.values():
+        p.warmup(frames[0].shape)
+        p.run_batch(np.stack(frames[:4]))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t
+
+    cells = (grid_cfg.cells_h, grid_cfg.cells_w)
+    kcuda.reset_launches()
+    out = {}
+    for option, p in pipes.items():
+        single = p(frames[0]).cpu().numpy()
+        streamed = np.stack(list(p.stream(iter(frames), depth=2)))
+        batched = p.run_batch(np.stack(frames[:4])).cpu().numpy()
+        want = (2,) + cells if option == "laserscan_binary" else cells
+        check_grids(option, {"single": single[None], "stream": streamed,
+                             "batch": batched}, want)
+        same = {"single_vs_stream": float((single == streamed[0]).mean()),
+                "batch_vs_stream": float((batched == streamed[:4]).mean())}
+        check_batch_invariant(option, **same)
+        out[option] = {"batch_invariance": same, "grid_shape": list(want),
+                       "cell_values": {str(v): int(n) for v, n in zip(
+                           *np.unique(streamed, return_counts=True))}}
+    launches = dict(kcuda.LAUNCHES)
+    forwards = len(options) * (1 + len(frames) + 1)
+    if launches["fused_bottleneck"] != 16 * forwards or \
+            sum(launches.values()) != launches["fused_bottleneck"]:
+        fail(f"grid_options launched {launches}; expected "
+             f"{16 * forwards} fused_bottleneck launches and nothing else")
+    for option in options:
+        card, cpu = pipeline(option, "float32"), pipeline(option, "float32",
+                                                          "cpu")
+        got = np.stack([card(f).cpu().numpy() for f in frames[:2]])
+        ref = np.stack([cpu(f).numpy() for f in frames[:2]])
+        agree = float((got == ref).mean())
+        if agree < AGREE_F32:
+            fail(f"{option} f32 grids on the card vs the CPU agree on "
+                 f"{agree}; budget {AGREE_F32}")
+        out[option]["f32_card_vs_cpu_cells"] = agree
+        if option == "clahe":
+            from bugcar_image_segmentation_tpu_torch.postproc import clahe
+            enhanced = clahe(torch.as_tensor(frames[0])).numpy()
+            out[option].update(check_f32_card_vs_cpu(
+                "clahe", card.engine, cpu.engine, enhanced))
+        out[option].update(device_busy(pipes[option],
+                                       frames[:PROFILE_FRAMES]))
+    speed = speed_turns(list(pipes.items()), frames)
+    emit("grid_options", seconds=round(time.perf_counter() - t, 3),
+         setup_seconds=round(setup_s, 3), options=out, launches=launches,
+         speed=speed, nvidia_smi=smi)
+    return launches
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(DEADLINE_S, exit=True)
     import torch
@@ -1317,6 +1682,18 @@ def main() -> int:
     seg_launches = segformer_phase(smi)
     sep = sepconv_phase(lib)
     xc_launches = xception_phase(smi)
+    from bugcar_image_segmentation_tpu_torch.convert.flax_deeplab import \
+        random_deeplab_variables
+    from bugcar_image_segmentation_tpu_torch.convert.flax_unet import \
+        random_unet_variables
+    model_path_phase("deeplab_path", smi, ("deeplab", "deeplab_q"),
+                     DEEPLAB_HW, random_deeplab_variables,
+                     quarter=("deeplab_q",))
+    model_path_phase("unet_path", smi, ("unet",), UNET_HW,
+                     random_unet_variables)
+    # the rig and the grid options run the bottleneck too
+    for launches in (rig_phase(smi), grid_options_phase(smi)):
+        enet_entry["launches"] += launches["fused_bottleneck"]
     probe_entries = probe_phase(lib, dev)
 
     # -- result --------------------------------------------------------------

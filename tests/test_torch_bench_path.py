@@ -169,5 +169,5 @@ def test_w16_names_build_and_round_the_weights():
                          np.uint8)
         assert eng.predict(frame).shape == (mcfg["input_height"],
                                             mcfg["input_width"])
-    with pytest.raises(NotImplementedError, match="_w16"):
-        port.build_engine("unet_w16", device="cpu")
+    with pytest.raises(ValueError, match="_w16"):
+        port.build_engine("fcn_w16", device="cpu")

@@ -2,12 +2,13 @@
 (``csrc/fused_bottleneck.cu``, ``fused_bottleneck_mma``), emulated in torch
 on the CPU, and the wrapper's weight packing and argument checks.
 
-The kernel runs only on the card (tests/test_torch_cuda.py, which holds it
-to :func:`emulate` bit for bit).  Its arithmetic: bf16 operands and
-weights, f32 sums, y1, the 5x1 result and y2 rounded to bf16, the residual
-and the last PReLU in f32, every rounded value the one an f32 FMA chain
-over the input channels in order (taps row by row) gives -- :func:`emulate`,
-an FMA emulated as the exact product plus the sum in f64, rounded to f32.
+The kernel runs only on the card (tests/test_torch_cuda.py and
+chip_smoke.py hold it bit for bit to ``ops/cuda/bottleneck.py``'s
+``fused_bottleneck_chain``).  Its arithmetic: bf16 operands and weights,
+f32 sums, y1, the 5x1 result and y2 rounded to bf16, the residual and the
+last PReLU in f32, every rounded value the one an f32 FMA chain over the
+input channels in order (taps row by row) gives -- the chain, an FMA
+emulated as the exact product plus the sum in f64, rounded to f32.
 The kernel sums on the tensor cores and settles each rounding with an
 error bound, recomputing by the chain where the bound cannot settle it;
 ``test_settle_rounds_as_the_chain`` emulates that rule (k16 step sums, E =
@@ -16,7 +17,10 @@ error bound, recomputing by the chain where the bound cannot settle it;
 The chain is held to the plain version (``fused_bottleneck_ref``) under
 chip_smoke.py's bf16 budget, |got - ref| <= 2^-6 + 2^-5 |ref|, at every trunk
 block of ``models/enet.py`` (``TRUNK``) at the path's 32x64 map and a ragged
-one, and to the JAX package's Pallas kernel in interpret mode.
+one, and to the JAX package's Pallas kernel in interpret mode.  Where
+another summation order rounds y1, the 5x1 result or y2 apart from the
+chain, ``_ambiguous`` (the smoke's attribution of outputs over that budget)
+flags the value.
 """
 
 import numpy as np
@@ -72,73 +76,17 @@ def _prelu(v, a):
     return torch.where(v >= 0, v, a * v)
 
 
-def _fma(a, b, c):
-    """f32 fma(a, b, c): the exact product plus c in f64, rounded to f32."""
-    return (a.double() * b.double() + c.double()).float()
+def _split(p):
+    """A rounding point as (its inputs, its weights, t: the f32 sum to the
+    value before the last step, last: PReLU or nothing, whether a PReLU
+    follows)."""
+    last = ((lambda t: _prelu(t, p.slope)) if p.slope is not None
+            else (lambda t: t))
+    return (p.inputs, p.weights, p._replace(slope=None).finish, last,
+            p.slope is not None)
 
 
-def _products(a, w):
-    """a (..., K) @ w (K, N) as an f32 FMA chain over K in order."""
-    acc = torch.zeros(*a.shape[:-1], w.shape[1], device=a.device)
-    for k in range(w.shape[0]):
-        acc = _fma(a[..., k:k + 1], w[k], acc)
-    return acc
-
-
-def _taps(y, wcore, kind, dilation, half=0):
-    """The core's inputs as one K axis in the kernel's order (taps row by
-    row, then channels) and its (K, MID) weights; for asymmetric, half 0 is
-    the 5x1 over y1 and half 1 the 1x5 over the rounded 5x1 result."""
-    n, h, w, _ = y.shape
-    if kind == "asymmetric":
-        wk = _bf(wcore[half].reshape(5 * MID, MID))
-        if half == 0:
-            yp = torch.nn.functional.pad(y, (0, 0, 0, 0, 2, 2))
-            return torch.cat([yp[:, k:k + h] for k in range(5)], -1), wk
-        yp = torch.nn.functional.pad(y, (0, 0, 2, 2))
-        return torch.cat([yp[:, :, k:k + w] for k in range(5)], -1), wk
-    d = dilation
-    yp = torch.nn.functional.pad(y, (0, 0, d, d, d, d))
-    return torch.cat([yp[:, ky * d:ky * d + h, kx * d:kx * d + w]
-                      for ky in range(3) for kx in range(3)], -1), \
-        _bf(wcore).reshape(-1, MID)
-
-
-def _points(x, wp, s1, b1, a1, wcore, s2, b2, a2, we, s3, b3, ao, *, kind,
-            dilation):
-    """The kernel's rounding points in order, each as (its inputs, its
-    (K, N) weights, t(v): the f32 sum to the value before the last step,
-    last(t): PReLU or nothing, whether a PReLU follows), fed by the chain's
-    results of the points before; the output last."""
-    xf = x.float()
-    pts = []
-
-    def act(s, b, a):
-        return (lambda v: _fma(v, s, b)), (lambda t: _prelu(t, a)), True
-
-    def add(inp, w, t, last, kink):
-        pts.append((inp, w, t, last, kink))
-        return _bf(last(t(_products(inp, w))))
-
-    y1 = add(xf, _bf(wp), *act(s1, b1, a1))
-    inp, wk = _taps(y1, wcore, kind, dilation)
-    if kind == "asymmetric":
-        z = add(inp, wk, lambda v: v, lambda t: t, False)
-        inp, wk = _taps(z, wcore, kind, dilation, half=1)
-    y2 = add(inp, wk, *act(s2, b2, a2))
-    add(y2, _bf(we), lambda v: _fma(v, s3, b3) + xf,
-        lambda t: _prelu(t, ao), True)
-    return pts
-
-
-def emulate(x, *args, kind, dilation):
-    """The bf16 kernel's results on bf16 NHWC x (on x's device); returns
-    bf16."""
-    inp, w, t, last, _ = _points(x, *args, kind=kind, dilation=dilation)[-1]
-    return last(t(_products(inp, w))).to(torch.bfloat16)
-
-
-ERR_ABS, ERR_ACC = 2 ** -17, 2 ** -18   # csrc/fused_bottleneck.cu kErr*
+ERR_ABS, ERR_ACC = bn.ERR_ABS, bn.ERR_ACC   # csrc/fused_bottleneck.cu kErr*
 
 
 def _tc_sum(a, w):
@@ -183,7 +131,7 @@ def _over(got, ref):
 @pytest.mark.parametrize("kind,dil", PAIRS, ids=PAIR_IDS)
 def test_emulation_within_budget(kind, dil, shape):
     x, args = _inputs(kind, 7 + PAIRS.index((kind, dil)), *shape)
-    got = emulate(x, *args, kind=kind, dilation=dil)
+    got = bn.fused_bottleneck_chain(x, *args, kind=kind, dilation=dil)
     ref = bn.fused_bottleneck_ref(x, *args, kind=kind, dilation=dil)
     assert got.dtype == torch.bfloat16 and got.shape == x.shape
     over, err = _over(got, ref)
@@ -198,11 +146,47 @@ def test_settle_rounds_as_the_chain(kind, dil, shape):
     element the bound settles gets the chain's bits, and the bound leaves
     the chain a minority of the elements to recompute."""
     x, args = _inputs(kind, 50 + PAIRS.index((kind, dil)), *shape)
-    for inp, w, t, last, kink in _points(x, *args, kind=kind, dilation=dil):
-        want = last(t(_products(inp, w))).to(torch.bfloat16).view(torch.int16)
+    for p in bn.chain_points(x, *args, kind=kind, dilation=dil):
+        inp, w, t, last, kink = _split(p)
+        want = last(t(bn._fma_chain(inp, w))).to(torch.bfloat16).view(
+            torch.int16)
         bits, unsure = _settle(*_tc_sum(inp, w), t, last, kink)
         assert torch.equal(bits[~unsure], want[~unsure])
         assert float(unsure.float().mean()) < 0.3
+
+
+@pytest.mark.parametrize("kind,dil", PAIRS, ids=PAIR_IDS)
+def test_other_orders_round_apart_only_where_ambiguous(kind, dil):
+    """The exact sums rounded once, and the chain over the inputs in reverse
+    order, against the chain at every rounding point before the output:
+    every value they round to other bits is one ``_ambiguous`` flags, and
+    it flags a small share."""
+    x, args = _inputs(kind, 90 + PAIRS.index((kind, dil)), 1, 32, 64)
+    for p in bn.chain_points(x, *args, kind=kind, dilation=dil)[:-1]:
+        want = _bf(p.finish(bn._fma_chain(p.inputs, p.weights)))
+        flagged = bn._ambiguous(p)
+        for acc in ((p.inputs.double() @ p.weights.double()).float(),
+                    bn._fma_chain(p.inputs.flip(-1), p.weights.flip(0))):
+            apart = _bf(p.finish(acc)) != want
+            assert not bool((apart & ~flagged).any()), (p.name, int(
+                (apart & ~flagged).sum()))
+        assert float(flagged.float().mean()) < 0.3, p.name
+
+
+@pytest.mark.parametrize("kind,dil", PAIRS, ids=PAIR_IDS)
+def test_plain_rounds_apart_only_where_explained(kind, dil):
+    """chip_smoke.py's attribution on the CPU's plain version: every y1, z
+    or y2 it rounds apart from the chain is ambiguous or fed by one that
+    differs, and every output over the budget has a y2 that differs."""
+    x, args = _inputs(kind, 130 + PAIRS.index((kind, dil)), 2, 32, 64)
+    moved, counts = bn.rounds_apart(x, *args, kind=kind, dilation=dil)
+    assert moved.shape == x.shape[:3]
+    assert all(c["unexplained"] == 0 for c in counts.values()), counts
+    got = bn.fused_bottleneck_chain(x, *args, kind=kind, dilation=dil)
+    ref = bn.fused_bottleneck_ref(x, *args, kind=kind, dilation=dil)
+    diff = (got.float() - ref.float()).abs()
+    over = diff > ATOL + RTOL * ref.float().abs()
+    assert not bool((over & ~moved[..., None]).any())
 
 
 @pytest.mark.parametrize("kind,dil", [("regular", 1), ("dilated", 2),
@@ -221,7 +205,7 @@ def test_emulation_matches_pallas_interpret(kind, dil):
     want = np.asarray(jfused(jnp.asarray(x.float().numpy()).astype(
         jnp.bfloat16), *jargs, kind=kind, dilation=dil,
         interpret=True)).astype(np.float32)
-    got = emulate(x, *args, kind=kind, dilation=dil)
+    got = bn.fused_bottleneck_chain(x, *args, kind=kind, dilation=dil)
     over, err = _over(got, torch.from_numpy(want))
     assert over == 0, (over, err)
 

@@ -2,8 +2,9 @@
 (the ENet bottleneck, flash attention, the fused separable conv, the
 Mosaic probes' strided gather and halo add), the SegFormer and Xception
 engines on the card against their plain versions, batch invariance (a
-frame's result alone equals its result in a batch), and bench.py's path
-(``enet_w16``, host resize, i420) on the card.
+frame's result alone equals its result in a batch, every engine family),
+the camera rig, and bench.py's path (``enet_w16``, host resize, i420) on
+the card.
 
 Needs an NVIDIA card (Hopper, sm_90a) and nvcc; every test here skips
 without a card.  This file imports neither JAX nor the JAX package, so it
@@ -193,13 +194,14 @@ def test_bottleneck_bf16_bits_are_the_chain(dev, kind, dil, shape):
     """The bf16 kernel sums on the tensor cores but rounds y1, the 5x1
     result, y2 and the output as an f32 FMA chain over the input channels in
     order does: bit for bit the emulation of that chain
-    (tests/test_torch_bottleneck_tiles.emulate), run here on the card."""
-    from test_torch_bottleneck_tiles import emulate
+    (``fused_bottleneck_chain``), run here on the card."""
+    from bugcar_image_segmentation_tpu_torch.ops.cuda.bottleneck import \
+        fused_bottleneck_chain
     args = _args(kind, 40 + KINDS.index((kind, dil)), dev)
     x = torch.as_tensor(np.random.default_rng(3).standard_normal(
         (*shape, 128)).astype(np.float32), device=dev).bfloat16()
     got = fused_bottleneck(x, *args, kind=kind, dilation=dil)
-    want = emulate(x, *args, kind=kind, dilation=dil)
+    want = fused_bottleneck_chain(x, *args, kind=kind, dilation=dil)
     torch.cuda.synchronize()
     assert torch.equal(got.view(torch.int16), want.view(torch.int16)), \
         int((got.view(torch.int16) != want.view(torch.int16)).sum())
@@ -617,11 +619,15 @@ def test_sepconv_wide_channels_bf16(dev, stride, f):
 @pytest.mark.parametrize("name,hw", [("segformer_b0", (512, 512)),
                                      ("segformer_b0_q", (512, 512)),
                                      ("deeplab_xception_fs", (512, 1024)),
-                                     ("enet_fused", (256, 512))])
+                                     ("enet_fused", (256, 512)),
+                                     ("deeplab", (512, 1024)),
+                                     ("deeplab_q", (512, 1024)),
+                                     ("unet", (256, 512)),
+                                     ("unet_ph", (256, 512))])
 def test_frame_alone_equals_frame_in_a_batch(dev, name, hw):
     """bf16 on the card: frame 0's logits alone and inside a batch of 4
-    are bit-equal, and so are the Pipeline's grids (SegFormer's backbone
-    frame by frame, ENet's and Xception's whole-batch)."""
+    are bit-equal, and so are the Pipeline's grids (SegFormer's and UNet's
+    backbones frame by frame, ENet's and both DeepLabs' whole-batch)."""
     import bugcar_image_segmentation_tpu_torch as port
     from bugcar_image_segmentation_tpu_torch import synthetic
     from bugcar_image_segmentation_tpu_torch.calibration import \
@@ -640,6 +646,60 @@ def test_frame_alone_equals_frame_in_a_batch(dev, name, hw):
                                   single)
     np.testing.assert_array_equal(
         np.stack(list(pipe.stream(iter(frames), depth=2))), single)
+
+
+def test_bottleneck_bits_are_the_chain_on_frames_4_to_7(dev):
+    """The bf16 kernel on ENet's trunk activations of frames 4-7 (a seeded
+    engine, each block fed the plain version's output of the block
+    before, as chip_smoke.py's gate does): bit for bit
+    ``fused_bottleneck_chain``."""
+    import bugcar_image_segmentation_tpu_torch as port
+    from bugcar_image_segmentation_tpu_torch import synthetic
+    from bugcar_image_segmentation_tpu_torch.convert.flax_enet import \
+        random_enet_variables
+    from bugcar_image_segmentation_tpu_torch.models import \
+        preprocess as pre
+    from bugcar_image_segmentation_tpu_torch.ops.cuda.bottleneck import \
+        fused_bottleneck_chain
+    frames = [f for f, _, _ in synthetic.video(seed=0, num_frames=8,
+                                               shape=(480, 640))]
+    eng = port.build_engine("enet_fused", variables=random_enet_variables(0),
+                            device="cuda")
+    with torch.no_grad():
+        x = pre.preprocess_for_config(torch.as_tensor(np.stack(
+            frames[4:8])).cuda(), eng.cfg)
+        x = eng.module.encode(x)[0].permute(0, 2, 3, 1).contiguous()
+        for blk in eng.forward_fn.blocks:
+            args = (blk.wp, blk.s1, blk.b1, blk.a1, blk.wcore(), blk.s2,
+                    blk.b2, blk.a2, blk.we, blk.s3, blk.b3, blk.ao)
+            kw = dict(kind=blk.kind, dilation=blk.dilation)
+            got = blk(x)
+            want = fused_bottleneck_chain(x, *args, **kw)
+            assert torch.equal(got.view(torch.int16),
+                               want.view(torch.int16)), (blk.kind,
+                                                         blk.dilation)
+            x = fused_bottleneck_ref(x, *args, **kw)
+
+
+def test_rig_stitch_is_the_per_camera_max_on_card(dev):
+    """bf16 on the card: the 4-camera rig on enet_fused_w16 (the kernel at
+    N = 4) stitches exactly the max of the per-camera Pipeline grids."""
+    import bugcar_image_segmentation_tpu_torch as port
+    from bugcar_image_segmentation_tpu_torch import synthetic
+    from bugcar_image_segmentation_tpu_torch.calibration import \
+        toy_calibration
+    frames = np.stack([f for f, _, _ in synthetic.video(
+        seed=0, num_frames=4, shape=(480, 640))])
+    eng = port.build_engine("enet_fused_w16", device="cuda")
+    cals = [toy_calibration((256, 512), yaw=y) for y in (-0.6, -0.2, 0.2,
+                                                         0.6)]
+    grid = port.GridConfig(8.0, 8.0, 0.1)
+    for interp in ("cv2_linear", "native"):
+        rig = port.MultiCameraPipeline(eng, cals, grid, interpolation=interp)
+        per_cam = np.stack([port.Pipeline(eng, c, grid, interpolation=interp)(
+            frames[i]).cpu().numpy() for i, c in enumerate(cals)])
+        np.testing.assert_array_equal(rig(frames).cpu().numpy(),
+                                      per_cam.max(0))
 
 
 def test_xception_engine_on_card_matches_plain(dev):

@@ -202,7 +202,9 @@ def test_engine_self_init_is_seeded():
 
 def test_unported_models_raise():
     with pytest.raises(NotImplementedError, match="not ported"):
-        port.build_engine("unet", device="cpu")
+        port.build_engine("segformer_b0_hc", device="cpu")
+    with pytest.raises(ValueError, match="unknown model"):
+        port.build_engine("fcn", device="cpu")
 
 
 def test_input_shape_checked():

@@ -189,10 +189,12 @@ def test_builder_bit_equal(hw, g, interp, mode):
 
 def test_builder_rejects_what_this_slice_lacks():
     cal, _ = _cals((32, 64))
-    import dataclasses
-    with pytest.raises(NotImplementedError, match="laserscan"):
-        OccupancyGridBuilder(dataclasses.replace(cal, laserscan=True),
-                             GridConfig(4.0, 4.0, 0.2), device="cpu")
+    with pytest.raises(ValueError, match="requires interpolation='native'"):
+        OccupancyGridBuilder(cal, GridConfig(4.0, 4.0, 0.2), label_scale=4,
+                             device="cpu")
+    with pytest.raises(ValueError, match="unknown mode"):
+        OccupancyGridBuilder(cal, GridConfig(4.0, 4.0, 0.2), mode="polar",
+                             device="cpu")
     with pytest.raises(ValueError, match="segmap shape"):
         OccupancyGridBuilder(cal, GridConfig(4.0, 4.0, 0.2),
                              device="cpu")(np.zeros((16, 16), np.uint8))

@@ -47,7 +47,9 @@ SLICE_MODULES = ("ops.cuda.attention", "models.segformer",
                  "convert.flax_segformer", "ops.cuda.sepconv",
                  "models.layers", "models.deeplab", "models.xception",
                  "convert.flax_xception", "ops.yuv", "ops.host_resize",
-                 "utils.msgpack", "utils.checkpoint", "ops.cuda.probes")
+                 "utils.msgpack", "utils.checkpoint", "ops.cuda.probes",
+                 "models.unet", "convert.flax_tree", "convert.flax_deeplab",
+                 "convert.flax_unet", "ops.polar", "postproc")
 GRID = (4.0, 4.0, 0.2)
 MODEL = dict(input_width=64, input_height=32, dtype="float32")
 
@@ -120,17 +122,17 @@ def test_unported_options_raise(pair):
     eng = port.build_engine("enet", port.ModelConfig(**MODEL), variables=v,
                             device="cpu")
     grid = port.GridConfig(*GRID)
+    # CLAHE, the contour filter and laserscan calibrations are ported
+    # (tests/test_torch_postproc.py, tests/test_torch_polar.py)
     for kw in (dict(use_clahe=True), dict(contour_filter=True)):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            port.Pipeline(eng, cal, grid, **kw)
+        port.Pipeline(eng, cal, grid, **kw)
+    port.Pipeline(eng, dataclasses.replace(cal, laserscan=True), grid)
     # the i420 transport and the host resize are ported (they are the
     # bench path; tests/test_torch_bench_path.py); i420 needs the host
     # resize, as in the JAX package
     with pytest.raises(ValueError, match="requires host_resize"):
         port.Pipeline(eng, cal, grid, transport="i420")
     port.Pipeline(eng, cal, grid, host_resize=True, transport="i420")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        port.Pipeline(eng, dataclasses.replace(cal, laserscan=True), grid)
     with pytest.raises(ValueError, match="unknown transport"):
         port.Pipeline(eng, cal, grid, transport="yuv")
     with pytest.raises(ValueError, match="must match"):
