@@ -12,19 +12,22 @@ it nor JAX, Flax, msgpack or cv2.  The ported slices carry the path
 
 with the backbone ENet (``"enet"``, or ``"enet_fused"`` with the 16 trunk
 bottlenecks as a hand-written CUDA kernel), SegFormer B0-B3
-(``"segformer[_bN][_q]"``, attention as a hand-written CUDA kernel),
-DeepLabV3+ on Xception-65 (``"[deeplab_]xception[_q][_fs]"``) or on
-MobileNetV2 (``"deeplab[_q]"``), or UNet (``"unet"``, ``"unet_ph"``), any
-of them with ``_w16`` (weights rounded to bf16); optionally CLAHE before
-the backbone, the contour filter after it and a laserscan grid, and N
-cameras stitched into one grid (``MultiCameraPipeline``).  ``bench.py``'s
+(``"segformer[_bN][_q][_int8][_hc]"``, attention as a hand-written CUDA
+kernel), DeepLabV3+ on Xception-65 (``"[deeplab_]xception[_q][_int8][_fs]"``)
+or on MobileNetV2 (``"deeplab[_q]"``), or UNet (``"unet"``, ``"unet_ph"``),
+any of them with ``_w16`` (weights rounded to bf16); optionally CLAHE
+before the backbone, the contour filter after it and a laserscan grid, and
+N cameras stitched into one grid (``MultiCameraPipeline``).  After the
+grid: temporal fusion (``TemporalGridFusion``), the camera's FOV in cells
+(``fov``), the ROS message (``msg``), and the accuracy / IoU and parity
+instruments (``evaluation``).  ``bench.py``'s
 path is ``build_engine("enet_w16")`` with ``Pipeline(..., host_resize=True,
 transport="i420")``.
 
 Layer map:
   ops/        resamplers, the host resize, the I420 transport, pooling,
-              morphology, the homography warp, the polar plans, ops/cuda/
-              (kernel wrappers; sources in csrc/)
+              morphology, the homography warp, the polar plans, the W8A8
+              int8 matmul, ops/cuda/ (kernel wrappers; sources in csrc/)
   geometry    calibration-time homography math (host numpy)
   configs     calibration / grid / model / runtime configs
   models/     ENet and its fused-trunk executor, SegFormer, the Xception
@@ -34,6 +37,10 @@ Layer map:
   grid        segmap → occupancy grid (ops/polar.py: laserscan)
   postproc    CLAHE and the contour filter
   pipeline    frame → grid, batched and streaming; the camera rig
+  fusion      temporal log-odds evidence over grids (numpy or torch)
+  fov         the camera's field of view in grid cells (numpy)
+  msg         nav_msgs/OccupancyGrid semantics, ROS-free (numpy)
+  evaluation  accuracy / IoU and the bit-parity report
   synthetic   procedural road scenes (numpy)
 
 Entry points run on the GPU (``device="cuda"``) unless the caller passes
@@ -44,15 +51,19 @@ version.
 from . import configs, geometry
 from .calibration import BEVTransform
 from .configs import CalibrationConfig, GridConfig, ModelConfig, RuntimeConfig
-from .grid import OccupancyGridBuilder
+from .fusion import FusionState, TemporalGridFusion, fuse_step
+from .grid import (OccupancyGridBuilder, create_occupancy_grid,
+                   create_occupancy_grid_binary)
 from .models.api import Engine, build_engine
-from .pipeline import MultiCameraPipeline, Pipeline, stitch_grids
+from .pipeline import (MultiCameraPipeline, Pipeline, segment_frame,
+                       stitch_grids)
 
 __version__ = "0.1.0"
 
 __all__ = [
     "BEVTransform", "CalibrationConfig", "GridConfig", "ModelConfig",
-    "RuntimeConfig", "OccupancyGridBuilder", "Pipeline",
-    "MultiCameraPipeline", "stitch_grids", "Engine", "build_engine",
-    "configs", "geometry",
+    "RuntimeConfig", "OccupancyGridBuilder", "create_occupancy_grid",
+    "create_occupancy_grid_binary", "Pipeline", "MultiCameraPipeline",
+    "stitch_grids", "segment_frame", "Engine", "build_engine", "configs",
+    "geometry", "FusionState", "TemporalGridFusion", "fuse_step",
 ]

@@ -21,6 +21,7 @@ occupied cells, the first hit along each ray; binary returns the pair
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Tuple, Union
 
 import torch
@@ -216,4 +217,33 @@ class OccupancyGridBuilder:
         return self.build(segmap)
 
 
-__all__ = ["OccupancyGridBuilder", "TemplateGeometry", "template_geometry"]
+@functools.lru_cache(maxsize=8)
+def _cached_builder(cal: CalibrationConfig, grid: GridConfig, mode: str,
+                    interpolation: str, device: str) -> OccupancyGridBuilder:
+    return OccupancyGridBuilder(cal, grid, mode=mode,
+                                interpolation=interpolation, device=device)
+
+
+def create_occupancy_grid(segmap, cal: CalibrationConfig, grid: GridConfig,
+                          interpolation: str = "cv2_linear", device="cuda"):
+    """One-shot functional API mirroring reference bev.py:166: a
+    multiclass grid (or the laserscan grid of a laserscan calibration)
+    from a (H, W) or (B, H, W) segmap, through a builder cached per
+    calibration, grid, interpolation and device."""
+    return _cached_builder(cal, grid, "multiclass", interpolation,
+                           str(device))(segmap)
+
+
+def create_occupancy_grid_binary(segmap, cal: CalibrationConfig,
+                                 grid: GridConfig,
+                                 interpolation: str = "cv2_linear",
+                                 device="cuda"):
+    """One-shot functional API mirroring reference bev.py:97: the binary
+    grid (with a laserscan calibration, the pair of plain and ray-cast
+    grids)."""
+    return _cached_builder(cal, grid, "binary", interpolation,
+                           str(device))(segmap)
+
+
+__all__ = ["OccupancyGridBuilder", "TemplateGeometry", "template_geometry",
+           "create_occupancy_grid", "create_occupancy_grid_binary"]

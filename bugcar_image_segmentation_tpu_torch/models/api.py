@@ -7,14 +7,19 @@ Port of ``bugcar_image_segmentation_tpu/models/api.py`` (``Engine`` and
 - ``"enet"``: the :class:`~.enet.ENet` module, plain PyTorch ops;
 - ``"enet_fused"``: the same parameters with the 16 trunk bottlenecks as
   hand-written CUDA kernels (:class:`~.enet_fused.FusedENet`);
-- ``"segformer[_bN][_q]"``: :class:`~.segformer.SegFormer` B0 (default)
-  to B3, attention through the hand-written CUDA kernel; ``_q`` keeps the
-  head at 1/4 resolution (argmax there, labels nearest-lifted; see
-  :attr:`Engine.label_scale`).  ``_int8`` and ``_hc`` are not ported;
-- ``"[deeplab_]xception[_q][_fs]"``: DeepLabV3+ on Xception-65
+- ``"segformer[_bN][_q][_int8][_hc]"`` (flags in any order):
+  :class:`~.segformer.SegFormer` B0 (default) to B3, attention through
+  the hand-written CUDA kernel; ``_q`` keeps the head at 1/4 resolution
+  (argmax there, labels nearest-lifted; see :attr:`Engine.label_scale`),
+  ``_int8`` runs the Dense products that clear the W8A8 gate on int8
+  (``ops/quant.py``), ``_hc`` sums the head's parts as a cascade; both
+  take the JAX engine's folded head;
+- ``"[deeplab_]xception[_q][_int8][_fs]"``: DeepLabV3+ on Xception-65
   (:class:`~.xception.Xception65DeepLab`); ``_fs`` runs the 55 dilation-1
   separable convs of the entry and middle flows through the hand-written
-  CUDA kernel, ``_q`` as for SegFormer.  ``_int8`` is not ported;
+  CUDA kernel, ``_q`` as for SegFormer, ``_int8`` the pointwise 1x1s
+  with C and F >= 512 on int8 (and, as in the JAX package, no sepconv
+  through the kernel);
 - ``"deeplab[_q]"``: DeepLabV3+ over MobileNetV2
   (:class:`~.deeplab.DeepLabV3`, BASELINE config 2's ``deeplab.pb``
   model), 1024x512 by default, ``_q`` as for SegFormer;
@@ -83,21 +88,22 @@ def _round_bf16(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
                 else v) for k, v in sd.items()}
 
 
-def segformer_variant(name: str) -> Tuple[str, bool]:
-    """``"segformer[_size][_q]"`` → (size, quarter head); the JAX
-    package's ``_int8`` and ``_hc`` raise ``NotImplementedError``."""
+SEGFORMER_FLAGS = ("q", "int8", "hc")
+XCEPTION_FLAGS = ("q", "int8", "fs")
+
+
+def segformer_variant(name: str) -> Tuple[str, bool, bool, bool]:
+    """``"segformer[_size][_q][_int8][_hc]"``, flags in any order → (size,
+    quarter head, int8, head cascade)."""
     tokens = name.split("_")[1:]
-    for flag in ("int8", "hc"):
-        if flag in tokens:
-            raise NotImplementedError(
-                f"SegFormer variant {name!r}: _{flag} is not ported yet "
-                f"(ROADMAP.md Queue 1, the quantized and cascaded variants)")
-    rest = [t for t in tokens if t != "q"]
+    rest = [t for t in tokens if t not in SEGFORMER_FLAGS]
     if len(rest) > 1 or (rest and rest[0] not in SEGFORMER_PRESETS):
         raise ValueError(
             f"unknown SegFormer variant {name!r}; grammar is "
-            f"segformer[_size][_q] with size in {sorted(SEGFORMER_PRESETS)}")
-    return (rest[0] if rest else "b0"), "q" in tokens
+            f"segformer[_size][_q][_int8][_hc] with size in "
+            f"{sorted(SEGFORMER_PRESETS)}")
+    return ((rest[0] if rest else "b0"),) + tuple(
+        f in tokens for f in SEGFORMER_FLAGS)
 
 
 def _is_segformer(name: str) -> bool:
@@ -109,18 +115,14 @@ def _is_xception(name: str) -> bool:
             or name.startswith(("deeplab_xception_", "xception_")))
 
 
-def xception_variant(name: str) -> Tuple[bool, bool]:
-    """``"[deeplab_]xception[_q][_fs]"`` → (quarter head, fused sepconvs);
-    the JAX package's ``_int8`` raises ``NotImplementedError``."""
+def xception_variant(name: str) -> Tuple[bool, bool, bool]:
+    """``"[deeplab_]xception[_q][_int8][_fs]"``, flags in any order →
+    (quarter head, int8 pointwise, fused sepconvs)."""
     tokens = name.replace("deeplab_xception", "xception").split("_")[1:]
-    if any(t not in ("q", "int8", "fs") for t in tokens):
+    if any(t not in XCEPTION_FLAGS for t in tokens):
         raise ValueError(f"unknown Xception variant {name!r}; grammar is "
-                         f"[deeplab_]xception[_q][_fs]")
-    if "int8" in tokens:
-        raise NotImplementedError(
-            f"Xception variant {name!r}: _int8 is not ported yet (ROADMAP.md "
-            f"Queue 1, the quantized and cascaded variants)")
-    return "q" in tokens, "fs" in tokens
+                         f"[deeplab_]xception[_q][_int8][_fs]")
+    return tuple(f in tokens for f in XCEPTION_FLAGS)
 
 
 def frames_to_device(frames_bgr, device: torch.device) -> torch.Tensor:
@@ -135,9 +137,9 @@ class Engine:
     """A segmentation backbone behind a frame → class-map API.
 
     Args:
-      name: "enet", "enet_fused", "segformer[_bN][_q]",
-        "[deeplab_]xception[_q][_fs]", "deeplab[_q]", "unet" or "unet_ph",
-        each optionally with ``_w16``
+      name: "enet", "enet_fused", "segformer[_bN][_q][_int8][_hc]",
+        "[deeplab_]xception[_q][_int8][_fs]", "deeplab[_q]", "unet" or
+        "unet_ph", each optionally with ``_w16``
         (weights rounded to bf16 at load).
       cfg: model geometry, normalisation constants and compute dtype.
       variables: a Flax-layout numpy variable tree, or a port state dict;
@@ -152,6 +154,8 @@ class Engine:
     ``frame_by_frame`` (True for SegFormer and UNet): the backbone takes
     the frames of a batch one at a time (see :meth:`forward`); False runs
     the whole batch in one call.
+
+    ``int8`` and ``cascade``: the name's ``_int8`` and ``_hc`` flags.
     """
 
     def __init__(self, name: str, cfg: ModelConfig,
@@ -160,13 +164,14 @@ class Engine:
         self.size: Optional[str] = None
         self.family = "enet"
         base, self.weights_bf16 = _split_w16(name)
-        quarter = False
+        quarter = self.int8 = self.cascade = False
         if _is_segformer(base):
             self.family = "segformer"
-            self.size, quarter = segformer_variant(base)
+            self.size, quarter, self.int8, self.cascade = \
+                segformer_variant(base)
         elif _is_xception(base):
             self.family = "xception"
-            quarter, self.fused = xception_variant(base)
+            quarter, self.int8, self.fused = xception_variant(base)
         elif base in DEEPLAB:
             self.family, quarter = "deeplab", base == "deeplab_q"
         elif base in UNETS:
@@ -174,8 +179,9 @@ class Engine:
         elif base not in EXECUTORS:
             raise ValueError(
                 f"unknown model {name!r}; the port has {EXECUTORS}, "
-                f"{DEEPLAB}, {UNETS}, segformer[_b0|_b1|_b2|_b3][_q] and "
-                f"[deeplab_]xception[_q][_fs], each also with {W16}")
+                f"{DEEPLAB}, {UNETS}, segformer[_b0|_b1|_b2|_b3][_q][_int8]"
+                f"[_hc] and [deeplab_]xception[_q][_int8][_fs], each also "
+                f"with {W16}")
         self.base_name = base
         self.label_scale = 4 if quarter else 1
         self.name = name
@@ -201,7 +207,8 @@ class Engine:
         if self.family == "segformer":
             self._load_module(
                 SegFormer.preset(self.size, num_classes=self.cfg.num_classes,
-                                 head_upsample=quarter),
+                                 head_upsample=quarter, quant=self.int8,
+                                 head_cascade=self.cascade),
                 segformer_state_dict,
                 lambda seed, num_classes: random_segformer_variables(
                     seed, self.size, num_classes), variables)
@@ -262,7 +269,7 @@ class Engine:
         model = Xception65DeepLab(
             num_classes=self.cfg.num_classes, middle_blocks=middle,
             head_upsample="quarter" if self.label_scale == 4 else "full",
-            fused_sepconv=self.fused)
+            fused_sepconv=self.fused, pw_int8=self.int8)
         model.load_state_dict(_round_bf16(sd) if self.weights_bf16 else sd)
         self.module = model.to(self.device).eval().to_compute_dtype(
             self.dtype)
@@ -343,11 +350,12 @@ def build_engine(name: str = "enet",
                  variables: Optional[Mapping] = None,
                  device="cuda", seed: int = 0) -> Engine:
     """Engine by name: ``"enet"``, ``"enet_fused"``,
-    ``"segformer[_b0|_b1|_b2|_b3][_q]"``, ``"[deeplab_]xception[_q][_fs]"``,
-    ``"deeplab[_q]"``, ``"unet"`` or ``"unet_ph"``, each optionally with
-    ``_w16`` (the JAX package's ``_int8`` and ``_hc`` variants come with a
-    later slice).  SegFormer defaults to 1024x1024, both DeepLabs to
-    1024x512 and UNet to 512x256 (W x H), as the JAX package's."""
+    ``"segformer[_b0|_b1|_b2|_b3][_q][_int8][_hc]"``,
+    ``"[deeplab_]xception[_q][_int8][_fs]"``, ``"deeplab[_q]"``,
+    ``"unet"`` or ``"unet_ph"``, each optionally with ``_w16``, the names
+    the JAX package's ``build_engine`` takes.  SegFormer defaults to
+    1024x1024, both DeepLabs to 1024x512 and UNet to 512x256 (W x H), as
+    the JAX package's."""
     name = name.lower()
     if cfg is None:
         base, _ = _split_w16(name)

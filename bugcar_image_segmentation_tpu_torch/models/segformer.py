@@ -21,6 +21,21 @@ used in the activation dtype (:meth:`SegFormer.to_compute_dtype` casts
 them once); GELU is the tanh form unless ``torch_compat``; the head
 resizes the bf16 projections and the final ×4 runs in f32.
 
+``quant`` (engine suffix ``_int8``) runs every Dense whose K and N clear
+the W8A8 gate (``ops/quant.py``: both >= 512; at B2 stage 3's q, k, v,
+proj, fc1 and fc2) on int8 with int32 sums, rescaled ``acc * w_s * x_s``
+as the JAX transposed Dense (``models/chw.py::ChwDense``) that the JAX
+engine runs.  ``quant`` and ``head_cascade`` (``_hc``) take the JAX
+engine's folded head (``SegFormer(chw_head=True)``): the bias-free fuse
+conv composed into each stage's ``linear_c`` in f32 (stage s takes rows
+(3-s)*dd:(4-s)*dd of the fuse kernel, which is in ``concat(parts[::-1])``
+order), the folded product quantized where the stage width and the
+decoder width both clear the gate, and the four decoder-width parts
+summed at 1/4 resolution — directly, or (``head_cascade``) from the
+smallest stage up, ``acc = p_s + up(acc)``, as the JAX cascade does.
+The plain and ``_q`` engines keep the textbook head (linear_c, upsample,
+concat, fuse).
+
 Attention runs through the CUDA kernel of ``ops/cuda/attention.py``
 (the plain version on CPU tensors, or with ``xla_attention``), in the
 layout in which the head split is free: with one head (stage 0) the
@@ -41,6 +56,7 @@ import torch.nn.functional as F
 from ..ops.cuda.attention import (attention_reference,
                                   attention_reference_t, flash_attention,
                                   flash_attention_t)
+from ..ops import quant as q8
 from ..ops.resize import upsample_bilinear
 from .layers import BatchNorm, Conv, _cast
 
@@ -63,24 +79,49 @@ SEGFORMER_PRESETS = {
 
 class Dense(nn.Module):
     """``nn.Dense`` over the last axis (``kernel`` (in, out) ↔ ``weight``
-    (out, in))."""
+    (out, in)).  ``quant``: the W8A8 int8 product where K and N clear the
+    gate (:attr:`int8`); its int8 weights come from the f32 weight at the
+    first call, which therefore stays f32."""
 
-    def __init__(self, cin: int, cout: int):
+    def __init__(self, cin: int, cout: int, quant: bool = False):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros(cout, cin))
         self.bias = nn.Parameter(torch.zeros(cout))
+        self.int8 = quant and q8.gated(cin, cout)
+        self._w8 = None
+
+    def clear(self) -> None:
+        """Forget the int8 weights (after new parameters or a move)."""
+        self._w8 = None
+
+    def _int8(self, x: torch.Tensor) -> torch.Tensor:
+        """(..., in) → (..., out) in x's dtype: per-token int8 activations,
+        int32 sums, ``acc * w_s * x_s + b`` in f32 (ChwDense's order)."""
+        if self._w8 is None:
+            self._w8 = q8.quantize_weight_int8(self.weight.float().t())
+        w_q, w_s = self._w8
+        x_q, x_s = q8.quantize_activation_int8(x)
+        acc = q8.int8_mm(x_q.reshape(-1, x.shape[-1]), w_q)
+        acc = acc.view(x.shape[:-1] + (w_q.shape[1],))
+        return (acc.float() * w_s * x_s + self.bias.float()).to(x.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.int8:
+            return self._int8(x)
         return F.linear(x, _cast(self.weight, x), _cast(self.bias, x))
 
     def forward_t(self, x: torch.Tensor) -> torch.Tensor:
         """(N, L, in) → (N, out, L): the same product, channel-major."""
+        if self.int8:
+            return self._int8(x).transpose(1, 2).contiguous()
         w = _cast(self.weight, x)
         return torch.baddbmm(_cast(self.bias, x)[None, :, None],
                              w.expand(x.shape[0], -1, -1), x.transpose(1, 2))
 
     def from_t(self, x: torch.Tensor) -> torch.Tensor:
         """(N, in, L) channel-major → (N, L, out)."""
+        if self.int8:
+            return self._int8(x.transpose(1, 2))
         w = _cast(self.weight, x)
         return torch.baddbmm(_cast(self.bias, x), x.transpose(1, 2),
                              w.t().expand(x.shape[0], -1, -1))
@@ -132,16 +173,17 @@ class OverlapPatchEmbed(nn.Module):
 class EfficientAttention(nn.Module):
     """Self-attention with spatial reduction of K/V (SegFormer's SRA)."""
 
-    def __init__(self, dim: int, num_heads: int, sr_ratio: int = 1):
+    def __init__(self, dim: int, num_heads: int, sr_ratio: int = 1,
+                 quant: bool = False):
         super().__init__()
         self.dim, self.num_heads, self.sr_ratio = dim, num_heads, sr_ratio
-        self.q = Dense(dim, dim)
-        self.k = Dense(dim, dim)
-        self.v = Dense(dim, dim)
+        self.q = Dense(dim, dim, quant)
+        self.k = Dense(dim, dim, quant)
+        self.v = Dense(dim, dim, quant)
         if sr_ratio > 1:
             self.sr = Conv(dim, dim, sr_ratio, sr_ratio)
             self.sr_norm = LayerNorm(dim)
-        self.proj = Dense(dim, dim)
+        self.proj = Dense(dim, dim, quant)
 
     def forward(self, x: torch.Tensor, hw: Tuple[int, int],
                 xla_attention: bool = False) -> torch.Tensor:
@@ -172,13 +214,13 @@ class MixFFN(nn.Module):
     encoding; ``exact_gelu`` picks the erf GELU over the tanh form."""
 
     def __init__(self, dim: int, expansion: int = 4,
-                 exact_gelu: bool = False):
+                 exact_gelu: bool = False, quant: bool = False):
         super().__init__()
         hidden = dim * expansion
         self.exact_gelu = exact_gelu
-        self.fc1 = Dense(dim, hidden)
+        self.fc1 = Dense(dim, hidden, quant)
         self.dwconv = Conv(hidden, hidden, 3, groups=hidden)
-        self.fc2 = Dense(hidden, dim)
+        self.fc2 = Dense(hidden, dim, quant)
 
     def forward(self, x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
         n, l, _ = x.shape
@@ -190,12 +232,12 @@ class MixFFN(nn.Module):
 
 class Block(nn.Module):
     def __init__(self, dim: int, num_heads: int, sr_ratio: int,
-                 exact_gelu: bool = False):
+                 exact_gelu: bool = False, quant: bool = False):
         super().__init__()
         self.norm1 = LayerNorm(dim)
-        self.attn = EfficientAttention(dim, num_heads, sr_ratio)
+        self.attn = EfficientAttention(dim, num_heads, sr_ratio, quant)
         self.norm2 = LayerNorm(dim)
-        self.ffn = MixFFN(dim, exact_gelu=exact_gelu)
+        self.ffn = MixFFN(dim, exact_gelu=exact_gelu, quant=quant)
 
     def forward(self, x: torch.Tensor, hw: Tuple[int, int],
                 xla_attention: bool = False) -> torch.Tensor:
@@ -215,8 +257,8 @@ class SegFormer(nn.Module):
     of the official implementation, instead of SAME and tanh.
     ``xla_attention`` (an attribute, read at each forward): attention
     through the plain version instead of the kernel — the yardstick.
-    The JAX module's ``quant`` (``_int8``) and ``head_cascade`` (``_hc``)
-    are not ported.
+    ``quant`` (``_int8``): the W8A8 Dense products; ``quant`` or
+    ``head_cascade`` (``_hc``): the folded head (module docstring).
     """
 
     def __init__(self, num_classes: int = 15,
@@ -231,12 +273,6 @@ class SegFormer(nn.Module):
                  quant: bool = False,
                  head_cascade: bool = False):
         super().__init__()
-        for flag, what in ((quant, "quant (W8A8 int8, engine suffix _int8)"),
-                           (head_cascade, "head_cascade (engine suffix _hc)")):
-            if flag:
-                raise NotImplementedError(
-                    f"SegFormer {what} is not ported yet (ROADMAP.md Queue 1,"
-                    f" the quantized and cascaded variants)")
         if head_upsample not in ("full", "quarter"):
             raise ValueError(f"head_upsample must be 'full' or 'quarter', "
                              f"got {head_upsample!r}")
@@ -244,6 +280,11 @@ class SegFormer(nn.Module):
         self.depths = tuple(depths)
         self.head_upsample = head_upsample
         self.xla_attention = xla_attention
+        self.quant, self.head_cascade = quant, head_cascade
+        self.decoder_dim = decoder_dim
+        # the JAX engine's transposed head, which folds fuse into linear_c
+        self.folded_head = quant or head_cascade
+        self._folded = None
         pad = "torch" if torch_compat else "same"
         cin = 3
         for s, c in enumerate(widths):
@@ -253,7 +294,7 @@ class SegFormer(nn.Module):
             for b in range(depths[s]):
                 setattr(self, f"stage{s}_block{b}",
                         Block(c, num_heads[s], sr_ratios[s],
-                              exact_gelu=torch_compat))
+                              exact_gelu=torch_compat, quant=quant))
             setattr(self, f"norm{s}", LayerNorm(c))
             setattr(self, f"linear_c{s}", Dense(c, decoder_dim))
             cin = c
@@ -275,11 +316,35 @@ class SegFormer(nn.Module):
     def to_compute_dtype(self, dtype: torch.dtype) -> "SegFormer":
         """Cast the Dense and conv weights to ``dtype`` once (Flax casts
         them at every use); LayerNorm and BatchNorm stay f32, as Flax
-        computes them."""
+        computes them.  The int8 Denses and, with the folded head,
+        ``linear_c*`` and ``fuse`` stay f32: their int8 or folded weights
+        are made from the f32 values, as the JAX program makes them."""
+        keep = {id(m) for m in self.modules()
+                if isinstance(m, Dense) and m.int8}
+        if self.folded_head:
+            keep |= {id(self.fuse)} | {id(getattr(self, f"linear_c{s}"))
+                                      for s in range(4)}
         for mod in self.modules():
-            if isinstance(mod, (Dense, Conv, Pointwise)):
+            if isinstance(mod, (Dense, Conv, Pointwise)) and \
+                    id(mod) not in keep:
                 mod.to(dtype)
         return self
+
+    def clear(self) -> None:
+        """Forget the int8 and folded weights made from the parameters."""
+        self._folded = None
+        for m in self.modules():
+            if isinstance(m, Dense):
+                m.clear()
+
+    def load_state_dict(self, state_dict, strict: bool = True):
+        out = super().load_state_dict(state_dict, strict)
+        self.clear()
+        return out
+
+    def _apply(self, fn, *args, **kwargs):
+        self.clear()
+        return super()._apply(fn, *args, **kwargs)
 
     # -- the forward, in the pieces a profile times --------------------------
 
@@ -304,7 +369,9 @@ class SegFormer(nn.Module):
         """All-MLP head: project every stage to the decoder width, upsample
         to 1/4, concat (stage 3 first), fuse, BatchNorm, ReLU, classify;
         the f32 logits upsampled to ``out_hw`` unless the head is
-        "quarter"."""
+        "quarter".  With :attr:`folded_head`, :meth:`head_folded`."""
+        if self.folded_head:
+            return self.head_folded(feats, out_hw)
         target = tuple(feats[0].shape[1:3])
         proj = []
         for s, f in enumerate(feats):
@@ -312,12 +379,58 @@ class SegFormer(nn.Module):
             if tuple(p.shape[1:3]) != target:
                 p = upsample_bilinear(p, target, axes=(1, 2))
             proj.append(p)
-        y = self.fuse(torch.cat(proj[::-1], dim=-1))
+        return self._classify(self.fuse(torch.cat(proj[::-1], dim=-1)),
+                              out_hw)
+
+    def _classify(self, y: torch.Tensor, out_hw: Tuple[int, int]
+                  ) -> torch.Tensor:
         y = torch.relu(self.fuse_bn(y))
         y = self.classifier(y).float()
         if self.head_upsample == "quarter":
             return y
         return upsample_bilinear(y, out_hw, axes=(1, 2))
+
+    def folded(self, dtype: torch.dtype) -> List[Dense]:
+        """Stage s's ``linear_c`` with its slice of the bias-free fuse
+        composed in, in f32: kernel ``W_s @ fold_s``, bias ``b_s @
+        fold_s``, ``fold_s`` rows (3-s)*dd:(4-s)*dd of the fuse kernel
+        (in, out); an int8 Dense where C_s and dd clear the gate under
+        ``quant``, else cast to ``dtype``.  Made at the first call."""
+        if self._folded is None:
+            dd = self.decoder_dim
+            fuse = self.fuse.weight.float()[:, :, 0, 0].t()   # (4dd, dd)
+            parts = []
+            with torch.no_grad():
+                for s in range(4):
+                    lin = getattr(self, f"linear_c{s}")
+                    fold = fuse[(3 - s) * dd:(4 - s) * dd]
+                    d = Dense(lin.weight.shape[1], dd, self.quant).to(
+                        fuse.device)
+                    d.weight.copy_((lin.weight.float().t() @ fold).t())
+                    d.bias.copy_(lin.bias.float() @ fold)
+                    parts.append(d if d.int8 else d.to(dtype))
+            self._folded = parts
+        return self._folded
+
+    def head_folded(self, feats: List[torch.Tensor],
+                    out_hw: Tuple[int, int]) -> torch.Tensor:
+        """The JAX engine's transposed head in NHWC: the folded products
+        at each stage's resolution, summed at 1/4 resolution -- every
+        part upsampled there and added in stage order, or with
+        ``head_cascade`` from stage 3 up, ``acc = p_s + up(acc)`` -- in
+        the compute dtype; then BatchNorm, ReLU and the classifier."""
+        parts = [d(f) for d, f in zip(self.folded(feats[0].dtype), feats)]
+        if self.head_cascade:
+            y = parts[3]
+            for p in parts[2::-1]:
+                y = p + upsample_bilinear(y, tuple(p.shape[1:3]),
+                                          axes=(1, 2))
+        else:
+            target = tuple(parts[0].shape[1:3])
+            y = parts[0]
+            for p in parts[1:]:
+                y = y + upsample_bilinear(p, target, axes=(1, 2))
+        return self._classify(y, out_hw)
 
     def check_input(self, x: torch.Tensor) -> None:
         if x.dim() != 4 or x.shape[1] % 32 or x.shape[2] % 32:

@@ -22,6 +22,12 @@ function as the JAX ``_fs`` — 7 entry-flow sites and 3 per middle block,
 55 launches per backbone batch at the default 16 middle blocks.  The
 exit flow (dilation 2) always takes the plain path.
 
+``pw_int8`` (engine suffix ``_int8``) computes the pointwise 1x1s with C
+and F both >= 512 (block 3's sep1 and sep2, the middle flow, the exit
+flow) by the W8A8 int8 product of ``ops/quant.py`` (``Int8Conv1x1``),
+from int8 weights made from the f32 pointwise kernel; as in the JAX
+model it turns the fused kernel off at every site.
+
 Numerics, as the Flax module: conv weights are used in the activation
 dtype (:meth:`Xception65DeepLab.to_compute_dtype` casts them once),
 BatchNorm computes in f32 from f32 parameters, the fused kernel takes its
@@ -37,6 +43,7 @@ from typing import Dict, Tuple, Union
 import torch
 import torch.nn as nn
 
+from ..ops import quant as q8
 from ..ops.cuda.sepconv import fold_bn, fused_sepconv
 from .deeplab import ASPP, BN_EPS, ConvBN, _upsample
 from .layers import BatchNorm, Conv
@@ -51,10 +58,13 @@ class SepConvBN(nn.Module):
 
     def __init__(self, cin: int, features: int, stride: int = 1,
                  dilation: int = 1, act_out: bool = True,
-                 fused: bool = False):
+                 fused: bool = False, pw_int8: bool = False):
         super().__init__()
         self.stride, self.dilation = stride, dilation
-        self.act_out, self.fused = act_out, fused
+        self.act_out, self.fused = act_out, fused and not pw_int8
+        # JAX Int8Conv1x1's site: the int8 path and C, F >= 512
+        self.int8 = pw_int8 and q8.gated(cin, features)
+        self._w8 = None
         self.depthwise = Conv(cin, cin, 3, stride, groups=cin, bias=False,
                               dilation=dilation)
         self.depthwise_bn = BatchNorm(cin, BN_EPS)
@@ -93,6 +103,15 @@ class SepConvBN(nn.Module):
                 "s2": s2.contiguous(), "b2": b2.contiguous()}
         return self._kernel_args
 
+    def pointwise_int8(self, y: torch.Tensor) -> torch.Tensor:
+        """The JAX ``Int8Conv1x1``: ``int8_matmul`` of the pixels by the
+        pointwise kernel, quantized from its f32 values at the first
+        call, cast to y's dtype."""
+        if self._w8 is None:
+            self._w8 = q8.quantize_weight_int8(
+                self.pointwise.weight.float()[:, :, 0, 0].t())
+        return q8.int8_linear(y, *self._w8).to(y.dtype)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.uses_kernel(x):
             a = self._kernel_args or self.fold()
@@ -100,7 +119,8 @@ class SepConvBN(nn.Module):
                                  a["s2"], a["b2"], strides=self.stride,
                                  act_out=self.act_out)
         y = torch.relu(self.depthwise_bn(self.depthwise(x)))
-        y = self.pointwise_bn(self.pointwise(y))
+        y = self.pointwise_int8(y) if self.int8 else self.pointwise(y)
+        y = self.pointwise_bn(y)
         return torch.relu(y) if self.act_out else y
 
 
@@ -111,16 +131,16 @@ class XceptionBlock(nn.Module):
 
     def __init__(self, cin: int, features: Tuple[int, int, int],
                  stride: int = 1, dilation: int = 1, skip: str = "conv",
-                 fused: bool = False):
+                 fused: bool = False, pw_int8: bool = False):
         super().__init__()
         if skip not in ("conv", "sum", "none"):
             raise ValueError(f"skip must be conv, sum or none, got {skip!r}")
         self.skip = skip
         f0, f1, f2 = features
-        self.sep0 = SepConvBN(cin, f0, dilation=dilation, fused=fused)
-        self.sep1 = SepConvBN(f0, f1, dilation=dilation, fused=fused)
-        self.sep2 = SepConvBN(f1, f2, stride, dilation, act_out=False,
-                              fused=fused)
+        kw = dict(dilation=dilation, fused=fused, pw_int8=pw_int8)
+        self.sep0 = SepConvBN(cin, f0, **kw)
+        self.sep1 = SepConvBN(f0, f1, **kw)
+        self.sep2 = SepConvBN(f1, f2, stride, act_out=False, **kw)
         if skip == "conv":
             self.shortcut = Conv(cin, f2, 1, stride, bias=False)
             self.shortcut_bn = BatchNorm(f2, BN_EPS)
@@ -143,13 +163,15 @@ class Xception65DeepLab(nn.Module):
     :attr:`dtype`; output float32 logits (N, H, W, classes), or (N, H/4,
     W/4, classes) with ``head_upsample="quarter"``.  ``fused_sepconv``:
     False, True / "all" (entry and middle flows), "entry", "middle" or
-    "block1" / "block2" / "block3", as the JAX model's.  The JAX model's
-    ``pw_int8`` (``_int8``) and ``dw_shift`` lowering are not ported.
+    "block1" / "block2" / "block3", as the JAX model's.  ``pw_int8``: the
+    int8 pointwise (module docstring); the JAX model's ``dw_shift``
+    lowering is not ported.
     """
 
     def __init__(self, num_classes: int = 15, middle_blocks: int = 16,
                  head_upsample: str = "full",
-                 fused_sepconv: Union[bool, str] = False):
+                 fused_sepconv: Union[bool, str] = False,
+                 pw_int8: bool = False):
         super().__init__()
         if head_upsample not in ("full", "quarter"):
             raise ValueError(f"head_upsample must be 'full' or 'quarter', "
@@ -161,22 +183,24 @@ class Xception65DeepLab(nn.Module):
         self.middle_blocks = middle_blocks
         self.head_upsample = head_upsample
         self.fused_sepconv = fused_sepconv
+        self.pw_int8 = pw_int8
+        q = dict(pw_int8=pw_int8)
         self.conv1_1 = ConvBN(3, 32, 3, 2)
         self.conv1_2 = ConvBN(32, 64, 3)
         self.block1 = XceptionBlock(64, (128, 128, 128), 2,
-                                    fused=self._fuse("block1"))
+                                    fused=self._fuse("block1"), **q)
         self.block2 = XceptionBlock(128, (256, 256, 256), 2,
-                                    fused=self._fuse("block2"))
+                                    fused=self._fuse("block2"), **q)
         self.block3 = XceptionBlock(256, (728, 728, 728), 2,
-                                    fused=self._fuse("block3"))
+                                    fused=self._fuse("block3"), **q)
         for i in range(middle_blocks):
             setattr(self, f"middle{i}",
                     XceptionBlock(728, (728, 728, 728), skip="sum",
-                                  fused=self._fuse("middle")))
-        self.exit1 = XceptionBlock(728, (728, 1024, 1024), dilation=2)
-        self.exit_sep0 = SepConvBN(1024, 1536, dilation=2)
-        self.exit_sep1 = SepConvBN(1536, 1536, dilation=2)
-        self.exit_sep2 = SepConvBN(1536, 2048, dilation=2)
+                                  fused=self._fuse("middle"), **q))
+        self.exit1 = XceptionBlock(728, (728, 1024, 1024), dilation=2, **q)
+        self.exit_sep0 = SepConvBN(1024, 1536, dilation=2, **q)
+        self.exit_sep1 = SepConvBN(1536, 1536, dilation=2, **q)
+        self.exit_sep2 = SepConvBN(1536, 2048, dilation=2, **q)
         self.aspp = ASPP(2048)
         self.low_proj = ConvBN(256, 48, 1)
         self.dec0 = ConvBN(256 + 48, 256, 3)
@@ -198,21 +222,34 @@ class Xception65DeepLab(nn.Module):
     def sepconvs(self):
         return [m for m in self.modules() if isinstance(m, SepConvBN)]
 
+    def clear(self) -> None:
+        """Forget the kernel arguments and int8 weights made from the
+        parameters."""
+        for m in self.sepconvs():
+            m._kernel_args = m._w8 = None
+
     def load_state_dict(self, state_dict, strict: bool = True):
         out = super().load_state_dict(state_dict, strict)
-        for m in self.sepconvs():
-            m._kernel_args = None
+        self.clear()
         return out
+
+    def _apply(self, fn, *args, **kwargs):
+        self.clear()
+        return super()._apply(fn, *args, **kwargs)
 
     def to_compute_dtype(self, dtype: torch.dtype) -> "Xception65DeepLab":
         """Fold the kernel sites' arguments from the f32 parameters, then
         cast the conv weights to ``dtype`` once (Flax casts them at every
-        use); BatchNorm stays f32, as Flax computes it."""
+        use); BatchNorm stays f32, as Flax computes it, and so do the int8
+        sites' pointwise kernels, which their int8 weights come from."""
+        keep = set()
         for m in self.sepconvs():
             if m.fused:
                 m.fold(dtype)
+            if m.int8:
+                keep.add(id(m.pointwise))
         for mod in self.modules():
-            if isinstance(mod, Conv):
+            if isinstance(mod, Conv) and id(mod) not in keep:
                 mod.to(dtype)
         return self
 

@@ -337,4 +337,16 @@ def stitch_grids(grids: torch.Tensor) -> torch.Tensor:
     return grids.amax(0)
 
 
-__all__ = ["Pipeline", "MultiCameraPipeline", "stitch_grids", "CHUNK"]
+def segment_frame(frame_bgr,
+                  engine: Engine,
+                  cal: CalibrationConfig,
+                  grid_cfg: GridConfig,
+                  mode: str = "multiclass") -> torch.Tensor:
+    """One-shot functional wrapper: a frame's grid through a fresh
+    :class:`Pipeline` (it plans the warp at every call and caches
+    nothing)."""
+    return Pipeline(engine, cal, grid_cfg, mode=mode)(frame_bgr)
+
+
+__all__ = ["Pipeline", "MultiCameraPipeline", "stitch_grids", "CHUNK",
+           "segment_frame"]

@@ -32,12 +32,12 @@ phase with its elapsed seconds:
    ``"enet"`` engine on the card and a float32 CPU run of the port.
 5. ``attention_kernels`` — ``flash_attention`` and ``flash_attention_t``
    at SegFormer-B0's four stage shapes at 1024x1024 (d 32, Nkv 1024 after
-   the spatial reduction), one d = 64 shape (B1-B3) and one Nkv = 4096
-   shape, each held against ``attention_reference`` in bfloat16 and in
-   float32 (TF32 off), and timed with CUDA events beside the plain version
-   and ``torch.nn.functional.scaled_dot_product_attention`` (a yardstick,
-   never on the path); each bf16 record carries its launch plan (queries
-   and threads a CTA, CTAs).
+   the spatial reduction), B2's four (d 64: heads 1, 2, 5, 8) and one
+   Nkv = 4096 shape, each held against ``attention_reference`` in
+   bfloat16 and in float32 (TF32 off), and timed with CUDA events beside
+   the plain version and ``torch.nn.functional.scaled_dot_product_attention``
+   (a yardstick, never on the path); each bf16 record carries its launch
+   plan (queries and threads a CTA, CTAs).
 6. ``segformer_path`` — ``build_engine("segformer_b0")`` (MiT-B0 at
    1024x1024, 15 classes, bf16, seeded weights) and ``Pipeline``:
    ``pipe(frame)``, ``pipe.stream(frames, depth=2)``, a 4-frame batch, and
@@ -103,6 +103,25 @@ phase with its elapsed seconds:
    (multiclass; binary, a (2, 80, 80) pair), ``use_clahe`` and
    ``contour_filter``, each with single, stream and batch grids equal,
    f32 grids on the card against the CPU, device busy and speed.
+15. ``variants_path`` — the serving picks of config 5,
+   ``segformer_b2_hc_q`` and ``segformer_b0_hc_q`` (native grid), and the
+   int8 engines ``segformer_b2_int8`` (at 1024x1024) and
+   ``xception_int8`` (1024x512, 16 middle blocks), bf16, seeded, through
+   ``Pipeline``: the attention launch counts of the run (none for
+   Xception, whose fused sepconv ``_int8`` turns off), single, stream and
+   4-frame batch grids equal, f32 on the card against the CPU (for the
+   int8 engines the CPU takes the card's int8 activations at every int8
+   product, so that both round alike; the free-running CPU run is
+   recorded beside), the bf16
+   label share against the same engine without the flag (a record: the
+   seeded weights make near-ties), device busy and the speed numbers; at
+   every int8 site of a frame ``torch._int_mm`` equal to the exact product
+   of the same int8 operands, and timed beside the whole int8 path and a
+   bf16 ``F.linear`` of the same (M, K, N) (``int8_site`` lines).
+16. ``fusion_path`` — ``segment_frame`` on ``enet_fused_w16`` over 16
+   synthetic frames with odometry, the grids fed to ``TemporalGridFusion``
+   with the ``"torch"`` backend on the card and the ``"numpy"`` backend:
+   fused grids and odds equal, ms an update of each.
 
 Every path's grids of one frame alone, in a batch and in a stream must be
 equal, in bf16 too (SegFormer's engines run the backbone frame by frame,
@@ -114,6 +133,7 @@ exit (faulthandler).
 
 from __future__ import annotations
 
+import contextlib
 import faulthandler
 import importlib.util
 import json
@@ -165,7 +185,11 @@ F32_LOGIT_ATOL = 1e-3
 # blocked regime (Nkv > 2048).
 ATTN_STAGES = [(1, 1, 65536, 1024, 32), (1, 2, 16384, 1024, 32),
                (1, 5, 4096, 1024, 32), (1, 8, 1024, 1024, 32)]
-ATTN_EXTRA = [(1, 2, 16384, 1024, 64), (1, 1, 4096, 4096, 32)]
+# SegFormer-B2's at 1024x1024: widths (64, 128, 320, 512) over heads (1, 2,
+# 5, 8), head dim 64 in every stage
+ATTN_B2_STAGES = [(1, 1, 65536, 1024, 64), (1, 2, 16384, 1024, 64),
+                  (1, 5, 4096, 1024, 64), (1, 8, 1024, 1024, 64)]
+ATTN_EXTRA = [(1, 1, 4096, 4096, 32)]
 SEGFORMER_HW = (1024, 1024)
 XCEPTION_HW = (512, 1024)  # (H, W): the JAX package's 1024x512 default
 # fused_sepconv's site shapes on the Xception path at 1024x512, (name, H,
@@ -198,6 +222,17 @@ PROFILE_FRAMES = 8
 # the Mosaic probes' (R, W, C) and the kernel launches of one run of
 # scripts/torch_probe_strided.py (Q1-Q3 f32, Q5-Q5d bf16, Q4)
 PROBE_SHAPE = (16, 64, 128)
+# The variants path: (engine, the same engine without its flag, input
+# (H, W), warp interpolation).  The _hc_q engines are docs/SERVING.md's
+# config-5 picks; B2 is widths (64, 128, 320, 512), depths (3, 4, 6, 3),
+# SR (8, 4, 2, 1), decoder 768.
+VARIANTS = [("segformer_b2_hc_q", "segformer_b2_q", SEGFORMER_HW, "native"),
+            ("segformer_b0_hc_q", "segformer_b0_q", SEGFORMER_HW, "native"),
+            ("segformer_b2_int8", "segformer_b2", SEGFORMER_HW, "cv2_linear"),
+            ("xception_int8", "deeplab_xception", XCEPTION_HW,
+             "cv2_linear")]
+FUSION_FRAMES = 16
+FUSION_PASSES = 8
 PROBE_LAUNCHES = {"strided_gather": 4, "strided_gather_bf16": 4,
                   "halo_add": 1}
 
@@ -298,15 +333,78 @@ def check_batch_invariant(what: str, **shares: float) -> None:
              f"stream runs; equal shares {shares}")
 
 
-def check_f32_card_vs_cpu(what: str, card, cpu, frame) -> dict:
+@contextlib.contextmanager
+def int8_mm_as(fn):
+    """Route every ``ops.quant.int8_mm(a, b)`` of the port through
+    ``fn(int8_mm, a, b)`` while the block runs."""
+    from bugcar_image_segmentation_tpu_torch.ops import quant
+    real = quant.int8_mm
+    quant.int8_mm = lambda a, b: fn(real, a, b)
+    try:
+        yield
+    finally:
+        quant.int8_mm = real
+
+
+def check_f32_card_vs_cpu(what: str, card, cpu, frame,
+                          int8: bool = False) -> dict:
     """f32 logits of one frame from an engine on the card (its kernels,
     TF32 off) against the port's engine on the CPU (the plain versions):
     finite, max |err| <= F32_LOGIT_ATOL, labels >= AGREE_F32; returns the
-    phase line's fields."""
+    phase line's fields.
+
+    ``int8``: the engine quantizes its activations, and an f32 value one
+    ulp from a rounding boundary on one side moves one int8 step, so a
+    few ulps of the card's and the CPU's other summation orders become
+    int8 steps (measured on the CPU against the JAX package too,
+    tests/test_torch_segformer_variants.py); so can a folded head's
+    weights, composed by another GEMM.  The CPU run then takes the card's
+    int8 operands at every int8 product, in call order, which leaves it
+    the card's rounding decisions and holds all else to the same budgets;
+    the free-running CPU run's labels and the int8 values it rounds the
+    other way are recorded beside."""
     import torch
+    extra = {}
     with torch.no_grad():
-        lg_card = card.logits(frame).cpu()
-        lg_cpu = cpu.logits(frame)
+        if int8:
+            card_ops = []
+
+            def record(mm, a, b):
+                card_ops.append((a, b))
+                return mm(a, b)
+
+            with int8_mm_as(record):
+                lg_card = card.logits(frame).cpu()
+            free = cpu.logits(frame)
+            forced = iter(card_ops)
+            moved = [0, 0]
+
+            def replay(mm, a, b):
+                ops = next(forced, None)
+                if ops is None or (ops[0].shape, ops[1].shape) != (
+                        a.shape, b.shape):
+                    fail(f"{what}: the CPU's int8 products do not follow "
+                         f"the card's")
+                a_card, b_card = (t.cpu() for t in ops)
+                moved[0] += int((a_card != a).sum() + (b_card != b).sum())
+                moved[1] += a.numel() + b.numel()
+                return mm(a_card, b_card)
+
+            with int8_mm_as(replay):
+                lg_cpu = cpu.logits(frame)
+            if next(forced, None) is not None:
+                fail(f"{what}: the CPU ran fewer int8 products than the card")
+            extra = {
+                "f32_free_cpu_label_agree": float(
+                    (lg_card.argmax(-1) == free.argmax(-1)).float().mean()),
+                "f32_free_cpu_max_logit_err": float(
+                    (lg_card - free).abs().max()),
+                "int8_products": len(card_ops),
+                "int8_values_rounded_apart": moved[0],
+                "int8_values": moved[1]}
+        else:
+            lg_card = card.logits(frame).cpu()
+            lg_cpu = cpu.logits(frame)
     if not bool(torch.isfinite(lg_card).all()):
         fail(f"{what}: float32 logits on the card are not finite")
     err = float((lg_card - lg_cpu).abs().max())
@@ -317,7 +415,7 @@ def check_f32_card_vs_cpu(what: str, card, cpu, frame) -> dict:
              f"{AGREE_F32})")
     return {"f32_card_vs_cpu_max_logit_err": err,
             "f32_card_vs_cpu_label_agree": agree,
-            "f32_logit_max": float(lg_cpu.abs().max())}
+            "f32_logit_max": float(lg_cpu.abs().max()), **extra}
 
 
 def block_bound(n: int, h: int, w: int, kind: str, dtype: str):
@@ -633,7 +731,7 @@ def attention_phase(lib, clock_hz: float) -> dict:
     t = time.perf_counter()
     records = {}
     worst = {"flash_attention": 0.0, "flash_attention_t": 0.0}
-    for shape in ATTN_STAGES + ATTN_EXTRA:
+    for shape in ATTN_STAGES + ATTN_B2_STAGES + ATTN_EXTRA:
         b, h, nq, nkv, d = shape
         rng = np.random.default_rng(SEED)
         base = [torch.as_tensor(rng.standard_normal((b, h, n, d)).astype(
@@ -687,10 +785,18 @@ def attention_phase(lib, clock_hz: float) -> dict:
                                "threads": 2 * rows}
             records[name, shape] = rec
             print(json.dumps({"phase": "attention_case", **rec}), flush=True)
+    # B2 (d = 64), the kernel of each stage's layout: token-major for the
+    # one head of stage 0, channel-major for stages 1-3
+    b2 = [{k: records[name, shape][k] for k in (
+        "kernel", "shape", "ms", "plain_ms", "library_ms", "bound_ms",
+        "bound_by", "max_abs_err_float32", "max_abs_err_bfloat16")}
+          for name, shape in zip(["flash_attention"]
+                                 + ["flash_attention_t"] * 3,
+                                 ATTN_B2_STAGES)]
     emit("attention_kernels", seconds=round(time.perf_counter() - t, 3),
          tolerance={k: {"atol": v[0], "rtol": v[1]}
                     for k, v in ATTN_TOL.items()},
-         max_abs_err=worst, sm_clock_hz=clock_hz)
+         max_abs_err=worst, sm_clock_hz=clock_hz, b2_stages=b2)
     return {"records": records, "worst": worst}
 
 
@@ -1630,6 +1736,252 @@ def grid_options_phase(smi: str) -> dict:
     return launches
 
 
+def int8_sites(engine, frame) -> list:
+    """The operands of every int8 product of one frame's forward, in call
+    order."""
+    import torch
+    seen = []
+
+    def watch(mm, a, b):
+        seen.append((a, b))
+        return mm(a, b)
+
+    with int8_mm_as(watch), torch.no_grad():
+        engine.logits(frame)
+    return seen
+
+
+def int8_site_records(name: str, sites: list) -> list:
+    """At each (M, K, N) of ``sites``: ``torch._int_mm`` (through
+    ``int8_mm``) equal to the exact product of the same int8 operands (an
+    f64 GEMM: every partial sum is an integer below 127^2 * K < 2^53), and
+    its device µs beside the whole int8 path (quantize, product, rescale)
+    and a bf16 ``F.linear`` of the same shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from bugcar_image_segmentation_tpu_torch.ops import quant
+    by_shape = {}
+    for a, b in sites:
+        key = (a.shape[0], a.shape[1], b.shape[1])
+        by_shape.setdefault(key, [a, b, 0])[2] += 1
+    out = []
+    for (m, k, n), (a, b, count) in by_shape.items():
+        got = quant.int8_mm(a, b)
+        exact = (a.double() @ b.double()).long()
+        if not torch.equal(got.long(), exact):
+            fail(f"{name}: torch._int_mm at (M, K, N) = {(m, k, n)} differs "
+                 f"from the exact product at "
+                 f"{int((got.long() != exact).sum())} elements")
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        x = torch.randn((m, k), device="cuda", generator=gen,
+                        dtype=torch.bfloat16)
+        w = torch.randn((n, k), device="cuda", generator=gen,
+                        dtype=torch.bfloat16)
+        w_q, w_s = quant.quantize_weight_int8(w.float().t())
+        iters = max(20, min(500, int(2e10 / (m * k * n))))
+        rec = {"engine": name, "m": m, "k": k, "n": n,
+               "sites_per_frame": count, "equal_to_exact": True,
+               "int_mm_us": 1e3 * cuda_ms(lambda: quant.int8_mm(a, b),
+                                          iters),
+               "int8_path_us": 1e3 * cuda_ms(
+                   lambda: quant.int8_linear(x, w_q, w_s), iters),
+               "bf16_linear_us": 1e3 * cuda_ms(lambda: F.linear(x, w),
+                                               iters)}
+        print(json.dumps({"phase": "int8_site", **rec}), flush=True)
+        out.append(rec)
+    return out
+
+
+def variants_phase(smi: str) -> dict:
+    """The variants of the serving surface (``VARIANTS``) at full width,
+    bf16, seeded, through Pipeline; returns the kernels' launch counts of
+    their runs."""
+    import numpy as np
+    import torch
+
+    import bugcar_image_segmentation_tpu_torch as port
+    from bugcar_image_segmentation_tpu_torch import synthetic
+    from bugcar_image_segmentation_tpu_torch.calibration import \
+        toy_calibration
+    from bugcar_image_segmentation_tpu_torch.convert.flax_segformer import \
+        random_segformer_variables
+    from bugcar_image_segmentation_tpu_torch.convert.flax_xception import \
+        random_xception_variables
+    from bugcar_image_segmentation_tpu_torch.ops import cuda as kcuda
+
+    t = time.perf_counter()
+    trees = {"b0": random_segformer_variables(SEED),
+             "b2": random_segformer_variables(SEED, "b2"),
+             "xception": random_xception_variables(SEED)}
+    frames = [f for f, _, _ in synthetic.video(
+        seed=SEED, num_frames=STREAM_FRAMES, shape=FRAME_HW)]
+
+    def engine(name, hw, dtype="bfloat16", device="cuda"):
+        family = ("xception" if "xception" in name
+                  else "b2" if "_b2" in name else "b0")
+        cfg = port.ModelConfig(
+            name="deeplab_xception" if family == "xception" else name,
+            input_width=hw[1], input_height=hw[0], dtype=dtype)
+        return port.build_engine(name, cfg, variables=trees[family],
+                                 device=device)
+
+    grid_cfg = port.GridConfig(8.0, 8.0, 0.1)
+    pipes = {}
+    for name, _, hw, interp in VARIANTS:
+        p = port.Pipeline(engine(name, hw), toy_calibration(hw), grid_cfg,
+                          interpolation=interp)
+        if interp == "native" and p.builder.label_scale != 4:
+            fail(f"{name}'s native grid does not read the quarter-res "
+                 f"labels")
+        p.warmup(frames[0].shape)
+        p.run_batch(np.stack(frames[:4]))
+        pipes[name] = p
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t
+
+    want = (grid_cfg.cells_h, grid_cfg.cells_w)
+    total = dict.fromkeys(kcuda.LAUNCHES, 0)
+    out = {}
+    for name, twin, hw, _ in VARIANTS:
+        p = pipes[name]
+        eng = p.engine
+        kcuda.reset_launches()
+        single = p(frames[0]).cpu().numpy()
+        streamed = np.stack(list(p.stream(iter(frames), depth=2)))
+        batched = p.run_batch(np.stack(frames[:4])).cpu().numpy()
+        launches = dict(kcuda.LAUNCHES)
+        forwards = backbone_calls(eng, 1 + len(frames), 4)
+        expect = dict.fromkeys(launches, 0)
+        if eng.family == "segformer":
+            depths = eng.module.depths
+            expect["flash_attention"] = depths[0] * forwards
+            expect["flash_attention_t"] = sum(depths[1:]) * forwards
+        if launches != expect:
+            fail(f"{name} launched {launches} for {forwards} backbone "
+                 f"forwards; expected {expect}")
+        for k, v in launches.items():
+            total[k] += v
+        check_grids(name, {"single": single[None], "stream": streamed,
+                           "batch": batched}, want)
+        same = {"single_vs_stream": float((single == streamed[0]).mean()),
+                "batch_vs_stream": float((batched == streamed[:4]).mean())}
+        check_batch_invariant(name, **same)
+
+        # the flag's effect in bf16, a record (seeded weights: near-ties)
+        with torch.no_grad():
+            lab = eng.logits(np.stack(frames[:4])).argmax(-1)
+            lab_twin = engine(twin, hw).logits(
+                np.stack(frames[:4])).argmax(-1)
+        share = (torch.bincount(lab.flatten(), minlength=eng.cfg.num_classes)
+                 .float() / lab.numel()).tolist()
+        rec = {"forwards": forwards, "launches": launches,
+               "batch_invariance": same,
+               f"label_agree_bf16_vs_{twin}":
+                   float((lab == lab_twin).float().mean()),
+               "label_share": share}
+        if eng.int8:
+            sites = int8_sites(eng, frames[0])
+            rec["int8_sites_per_frame"] = len(sites)
+            rec["int8_sites"] = int8_site_records(name, sites)
+            if not sites:
+                fail(f"{name} ran no int8 product")
+        rec.update(check_f32_card_vs_cpu(
+            name, engine(name, hw, "float32"),
+            engine(name, hw, "float32", "cpu"), frames[0], int8=eng.int8))
+        rec.update(device_busy(p, frames[:PROFILE_FRAMES]))
+        out[name] = rec
+    speed = speed_turns(list(pipes.items()), frames)
+    emit("variants_path", seconds=round(time.perf_counter() - t, 3),
+         setup_seconds=round(setup_s, 3), grid_shape=list(want),
+         engines=out, launches=total, speed=speed, nvidia_smi=smi)
+    return total
+
+
+def fusion_phase(smi: str) -> dict:
+    """``segment_frame`` on ``enet_fused_w16`` over synthetic frames with
+    odometry, fused by ``TemporalGridFusion`` on the card and on the host
+    (ms an update: host clock, the torch backend's fused grid fetched to
+    the host); returns the kernels' launch counts of the segment_frame
+    run."""
+    import numpy as np
+    import torch
+
+    import bugcar_image_segmentation_tpu_torch as port
+    from bugcar_image_segmentation_tpu_torch import synthetic
+    from bugcar_image_segmentation_tpu_torch.calibration import \
+        toy_calibration
+    from bugcar_image_segmentation_tpu_torch.convert.flax_enet import \
+        random_enet_variables
+    from bugcar_image_segmentation_tpu_torch.ops import cuda as kcuda
+
+    t = time.perf_counter()
+    eng = port.build_engine("enet_fused_w16", port.ModelConfig(),
+                            variables=random_enet_variables(SEED))
+    hw = (eng.cfg.input_height, eng.cfg.input_width)
+    cal = toy_calibration(hw)
+    grid_cfg = port.GridConfig(8.0, 8.0, 0.1)
+    video = list(synthetic.video(seed=SEED, num_frames=FUSION_FRAMES,
+                                 shape=FRAME_HW))
+    motion = [odo[:2] for _, _, odo in video]
+    port.segment_frame(video[0][0], eng, cal, grid_cfg).cpu()
+    torch.cuda.synchronize()
+
+    kcuda.reset_launches()
+    s = time.perf_counter()
+    grids = [port.segment_frame(f, eng, cal, grid_cfg) for f, _, _ in video]
+    torch.cuda.synchronize()
+    segment_ms = 1e3 * (time.perf_counter() - s) / len(video)
+    launches = dict(kcuda.LAUNCHES)
+    if (launches["fused_bottleneck"] != 16 * len(video)
+            or sum(launches.values()) != launches["fused_bottleneck"]):
+        fail(f"segment_frame on enet_fused_w16 launched {launches} for "
+             f"{len(video)} frames; expected 16 fused_bottleneck each")
+    host_grids = [g.cpu().numpy() for g in grids]
+    check_grids("segment_frame", {"grids": np.stack(host_grids)},
+                (grid_cfg.cells_h, grid_cfg.cells_w))
+
+    shape = (grid_cfg.cells_h, grid_cfg.cells_w)
+    card = port.TemporalGridFusion(shape, backend="torch",
+                                   cell_m=grid_cfg.cell_m)
+    host = port.TemporalGridFusion(shape, cell_m=grid_cfg.cell_m)
+    for g, hg, m in zip(grids, host_grids, motion):
+        a = card.update(g, motion_m=m).cpu().numpy()
+        b = host.update(hg, motion_m=m)
+        if not np.array_equal(a, b):
+            fail(f"fused grids of the torch (cuda) and numpy backends "
+                 f"differ at {int((a != b).sum())} cells")
+    if not np.array_equal(card.state.odds.cpu().numpy(), host._odds):
+        fail("the torch (cuda) and numpy backends' odds differ")
+    if not {0, 100} <= set(np.unique(b).tolist()):
+        fail(f"the fused grid holds {np.unique(b)}: no free and occupied "
+             f"cells both")
+
+    def update_ms(fusion, gs, fetch):
+        ms = []
+        for _ in range(FUSION_PASSES):
+            fusion.reset()
+            for g, m in zip(gs, motion):
+                s = time.perf_counter()
+                fetch(fusion.update(g, motion_m=m))
+                ms.append(1e3 * (time.perf_counter() - s))
+        return quartiles(ms)
+
+    emit("fusion_path", seconds=round(time.perf_counter() - t, 3),
+         frames=len(video), launches=launches,
+         segment_frame_ms=segment_ms, fused_equal=True, odds_equal=True,
+         fused_values=sorted(np.unique(b).tolist()),
+         motion_cells_total=[float(sum(m[0] for m in motion)
+                                   / grid_cfg.cell_m),
+                             float(sum(m[1] for m in motion)
+                                   / grid_cfg.cell_m)],
+         update_ms={"torch_cuda": update_ms(card, grids,
+                                            lambda r: r.cpu()),
+                    "numpy": update_ms(host, host_grids, lambda r: r)},
+         nvidia_smi=smi)
+    return launches
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(DEADLINE_S, exit=True)
     import torch
@@ -1691,10 +2043,14 @@ def main() -> int:
                      quarter=("deeplab_q",))
     model_path_phase("unet_path", smi, ("unet",), UNET_HW,
                      random_unet_variables)
-    # the rig and the grid options run the bottleneck too
+    # the rig, the grid options and the fusion path run the bottleneck too
     for launches in (rig_phase(smi), grid_options_phase(smi)):
         enet_entry["launches"] += launches["fused_bottleneck"]
     probe_entries = probe_phase(lib, dev)
+    # the variants path runs both attention kernels
+    for name, n in variants_phase(smi).items():
+        seg_launches[name] += n
+    enet_entry["launches"] += fusion_phase(smi)["fused_bottleneck"]
 
     # -- result --------------------------------------------------------------
     kernels = ([enet_entry] + [attention_entry(n, att, seg_launches)

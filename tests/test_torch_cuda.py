@@ -3,8 +3,10 @@
 Mosaic probes' strided gather and halo add), the SegFormer and Xception
 engines on the card against their plain versions, batch invariance (a
 frame's result alone equals its result in a batch, every engine family),
-the camera rig, and bench.py's path (``enet_w16``, host resize, i420) on
-the card.
+the camera rig, bench.py's path (``enet_w16``, host resize, i420) on
+the card, the int8 product (``torch._int_mm``, exact against the int32
+plain version, small M padded) and the torch backend of the temporal
+fusion on the card.
 
 Needs an NVIDIA card (Hopper, sm_90a) and nvcc; every test here skips
 without a card.  This file imports neither JAX nor the JAX package, so it
@@ -623,7 +625,10 @@ def test_sepconv_wide_channels_bf16(dev, stride, f):
                                      ("deeplab", (512, 1024)),
                                      ("deeplab_q", (512, 1024)),
                                      ("unet", (256, 512)),
-                                     ("unet_ph", (256, 512))])
+                                     ("unet_ph", (256, 512)),
+                                     ("segformer_b0_hc_q", (512, 512)),
+                                     ("segformer_b1_int8", (512, 512)),
+                                     ("xception_int8", (512, 1024))])
 def test_frame_alone_equals_frame_in_a_batch(dev, name, hw):
     """bf16 on the card: frame 0's logits alone and inside a batch of 4
     are bit-equal, and so are the Pipeline's grids (SegFormer's and UNet's
@@ -850,3 +855,44 @@ def test_bench_path_i420_against_bgr_on_card(dev):
                == cpu32.segment_and_grid(f)[1]).float().mean())
         for f in frames[:2]])
     assert agree >= 0.999, agree      # chip_smoke.py's AGREE_F32
+
+
+# -- the int8 product and the fusion's torch backend -----------------------
+
+@pytest.mark.parametrize("m", [1, 5, 16, 17, 24, 1000, 2048])
+@pytest.mark.parametrize("k,n", [(512, 512), (728, 728), (2048, 768)])
+def test_int_mm_exact_with_padded_rows(dev, m, k, n):
+    """torch._int_mm on the card (A padded with zero rows below 24 rows or
+    off a multiple of 8) equals the int32 plain version bit for bit."""
+    from bugcar_image_segmentation_tpu_torch.ops import quant
+    rng = np.random.default_rng(m + k + n)
+    a = torch.as_tensor(rng.integers(-127, 128, (m, k), np.int8))
+    b = torch.as_tensor(rng.integers(-127, 128, (n, k), np.int8)).t()
+    got = quant.int8_mm(a.to(dev), b.to(dev))
+    assert got.dtype == torch.int32 and got.shape == (m, n)
+    assert torch.equal(got.cpu(), quant.int8_mm_reference(a, b))
+    # a row-major B is accepted too (the wrapper lays it out)
+    assert torch.equal(quant.int8_mm(a.to(dev), b.contiguous().to(dev)),
+                       got)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        quant.int8_mm(a[:, :k - 4].to(dev), b[:k - 4].to(dev))
+
+
+def test_fusion_torch_backend_on_card(dev):
+    """TemporalGridFusion(backend="torch") on the card over a 20-frame
+    sequence with motion: fused grids and odds equal the numpy backend's
+    bit for bit."""
+    import bugcar_image_segmentation_tpu_torch as port
+    rng = np.random.default_rng(7)
+    a = port.TemporalGridFusion((80, 80), backend="torch", cell_m=0.1,
+                                device=dev)
+    b = port.TemporalGridFusion((80, 80), cell_m=0.1)
+    for _ in range(20):
+        g = rng.choice(np.array([-1, 0, 100], np.int8), (80, 80),
+                       p=[0.2, 0.6, 0.2])
+        m = (float(rng.uniform(0, 0.25)), float(rng.uniform(-0.15, 0.15)))
+        got = a.update(torch.as_tensor(g, device=dev), motion_m=m)
+        assert got.device.type == "cuda"
+        np.testing.assert_array_equal(got.cpu().numpy(),
+                                      b.update(g, motion_m=m))
+    np.testing.assert_array_equal(a.state.odds.cpu().numpy(), b._odds)

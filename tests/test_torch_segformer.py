@@ -178,10 +178,12 @@ def test_presets_and_unported_flags():
     assert set(SEGFORMER_PRESETS) == {"b0", "b1", "b2", "b3"}
     b2 = SegFormer.preset("b2", num_classes=7)
     assert b2.depths == (3, 4, 6, 3) and b2.fuse.weight.shape[0] == 768
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SegFormer(quant=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SegFormer(head_cascade=True)
+    # quant (_int8) and head_cascade (_hc) are ported, with the folded
+    # head (tests/test_torch_segformer_variants.py); the textbook head
+    # stays the plain model's
+    assert SegFormer(quant=True).folded_head
+    assert SegFormer(head_cascade=True).folded_head
+    assert not SegFormer().folded_head
     with pytest.raises(ValueError, match="head_upsample"):
         SegFormer(head_upsample="half")
     with pytest.raises(ValueError, match="divisible by 32"):

@@ -183,12 +183,20 @@ def test_default_config_and_unported_variants():
     eng = port.build_engine("segformer_b0", device="cpu")
     assert (eng.cfg.input_width, eng.cfg.input_height,
             eng.cfg.num_classes) == (1024, 1024, 15)
-    assert segformer_variant("segformer") == ("b0", False)
-    assert segformer_variant("segformer_q_b2") == ("b2", True)
-    assert segformer_variant("segformer_b3") == ("b3", False)
-    for name in ("segformer_int8", "segformer_b0_hc", "segformer_b2_q_int8"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port.build_engine(name, device="cpu")
-    for name in ("segformer_b9", "segformer_b0_b1"):
+    # (size, quarter head, int8, head cascade), flags in any order
+    assert segformer_variant("segformer") == ("b0", False, False, False)
+    assert segformer_variant("segformer_q_b2") == ("b2", True, False, False)
+    assert segformer_variant("segformer_b3") == ("b3", False, False, False)
+    for name, want in (("segformer_int8", ("b0", False, True, False)),
+                       ("segformer_b0_hc", ("b0", False, False, True)),
+                       ("segformer_b2_q_int8", ("b2", True, True, False)),
+                       ("segformer_hc_q_b2", ("b2", True, False, True))):
+        assert segformer_variant(name) == want
+    # the flags reach the module (the variants' numbers:
+    # tests/test_torch_segformer_variants.py)
+    eng = port.build_engine("segformer_hc_int8", device="cpu")
+    assert (eng.size, eng.int8, eng.cascade) == ("b0", True, True)
+    assert eng.module.quant and eng.module.head_cascade
+    for name in ("segformer_b9", "segformer_b0_b1", "segformer_int4"):
         with pytest.raises(ValueError, match="unknown SegFormer"):
             port.build_engine(name, device="cpu")

@@ -195,13 +195,14 @@ def test_bridge_is_strict():
 
 
 def test_engine_grammar_and_defaults():
-    assert xception_variant("xception") == (False, False)
-    assert xception_variant("deeplab_xception_fs") == (False, True)
-    assert xception_variant("xception_q_fs") == (True, True)
-    assert xception_variant("deeplab_xception_fs_q") == (True, True)
-    for name in ("xception_int8", "deeplab_xception_q_int8_fs"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port.build_engine(name, device="cpu")
+    # (quarter head, int8 pointwise, fused sepconvs)
+    assert xception_variant("xception") == (False, False, False)
+    assert xception_variant("deeplab_xception_fs") == (False, False, True)
+    assert xception_variant("xception_q_fs") == (True, False, True)
+    assert xception_variant("deeplab_xception_fs_q") == (True, False, True)
+    # _int8 is ported (its engines: tests/test_torch_xception_int8.py)
+    assert xception_variant("deeplab_xception_q_int8_fs") == (True, True,
+                                                              True)
     for name in ("xception_fz", "deeplab_xception_w8"):
         with pytest.raises(ValueError, match="grammar"):
             port.build_engine(name, device="cpu")
