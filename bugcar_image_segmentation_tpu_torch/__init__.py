@@ -32,8 +32,13 @@ Layer map:
   configs     calibration / grid / model / runtime configs
   models/     ENet and its fused-trunk executor, SegFormer, the Xception
               and MobileNetV2 DeepLabs, UNet, preprocess, remap, Engine
-  convert/    Flax variable trees → the port's state dicts
-  utils/      the Flax checkpoint reader (no msgpack, no Flax)
+  convert/    Flax variable trees ↔ the port's state dicts
+  utils/      the Flax checkpoint reader and writer (no msgpack, no Flax),
+              train-state checkpoints
+  training/   the loss, AdamW as optax computes it, the train and eval
+              steps (train-mode BatchNorm, ENet's dropout), augmentation
+  parallel/   the data-parallel train step's process group
+              (torch.distributed: gloo on the CPU, NCCL on the card)
   grid        segmap → occupancy grid (ops/polar.py: laserscan)
   postproc    CLAHE and the contour filter
   pipeline    frame → grid, batched and streaming; the camera rig

@@ -1,1 +1,2 @@
-"""Weight bridges into the PyTorch port's state dicts."""
+"""Weight bridges between Flax variable trees and the PyTorch port's state
+dicts."""

@@ -16,6 +16,11 @@ them) and returns float32 tensors keyed as the port's module names them:
 Every leaf is consumed exactly once: a leaf the module has no place for, a
 place no leaf fills, or a shape that does not fit raises ``ValueError``.
 Pure numpy + torch; the caller restores the tree.
+
+:func:`flax_variables` is the inverse, for a trained port model going back
+to a Flax checkpoint (``utils/checkpoint.save_variables``): every bridge
+in this package maps its result back onto the tree it came from, leaf for
+leaf and bit for bit.
 """
 
 from __future__ import annotations
@@ -105,6 +110,43 @@ def random_variables(model: nn.Module, seed: int = 0,
     return {"params": params, "batch_stats": stats}
 
 
+def flax_variables(model: nn.Module) -> dict:
+    """The port model's state dict → its Flax variable tree (``params`` and
+    ``batch_stats``) of float32 numpy arrays: ``weight`` → ``kernel``
+    (OIHW → HWIO; a transposed conv's (in, out, kh, kw) → the Flax kernel,
+    flipped back; a Dense's (out, in) → (in, out)), BatchNorm ``mean`` /
+    ``var`` → ``batch_stats``, every other leaf as it is.  The transposed
+    convs are the port's ``ConvTranspose`` (ENet) and ``UpConv2x`` (UNet)
+    modules."""
+    from ..models.enet import ConvTranspose
+    from ..models.unet import UpConv2x
+
+    transposed = {name for name, m in model.named_modules()
+                  if isinstance(m, (ConvTranspose, UpConv2x))}
+    params: dict = {}
+    stats: dict = {}
+    for key, t in model.state_dict().items():
+        path = key.split(".")
+        leaf = t.detach().float().cpu().numpy()
+        tree = stats if path[-1] in ("mean", "var") else params
+        if path[-1] == "weight":
+            if leaf.ndim == 2:
+                leaf = leaf.T
+            elif ".".join(path[:-1]) in transposed:
+                leaf = np.flip(leaf.transpose(2, 3, 0, 1), (0, 1))
+            else:
+                leaf = leaf.transpose(2, 3, 1, 0)
+            path[-1] = "kernel"
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = np.array(leaf, np.float32, order="C")   # a copy
+    out = {"params": params}
+    if stats:
+        out["batch_stats"] = stats
+    return out
+
+
 def classifier_width(variables: Mapping, what: str) -> int:
     """The classes of a segmentation tree: its classifier's width; ``what``
     names the tree in the error ("an Xception-65 DeepLab")."""
@@ -115,4 +157,5 @@ def classifier_width(variables: Mapping, what: str) -> int:
                          ) from exc
 
 
-__all__ = ["strict_state_dict", "random_variables", "classifier_width"]
+__all__ = ["strict_state_dict", "random_variables", "flax_variables",
+           "classifier_width"]

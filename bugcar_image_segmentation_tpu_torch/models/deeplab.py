@@ -28,7 +28,7 @@ logits runs in f32.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -131,7 +131,12 @@ class DeepLabV3(nn.Module):
 
     Input (N, H, W, 3) NHWC with H, W divisible by 16, computed in
     :attr:`dtype`; output float32 logits (N, H, W, classes), or (N, H/4,
-    W/4, classes) with ``head_upsample="quarter"``."""
+    W/4, classes) with ``head_upsample="quarter"`` in eval mode.  Train
+    mode (``train()``) takes BatchNorm statistics from the batch and always
+    upsamples the logits to the input, as the Flax module does;
+    :attr:`compute_dtype` computes in that dtype from f32 weights."""
+
+    compute_dtype: Optional[torch.dtype] = None
 
     def __init__(self, num_classes: int = 15, head_upsample: str = "full"):
         super().__init__()
@@ -151,9 +156,12 @@ class DeepLabV3(nn.Module):
         self.dec0 = ConvBN(256 + 48, 256, 3, relu6=True)
         self.dec1 = ConvBN(256, 256, 3, relu6=True)
         self.classifier = Conv(256, num_classes, 1)
+        self.eval()     # the quarter head serves unless train() is asked for
 
     @property
     def dtype(self) -> torch.dtype:
+        if self.compute_dtype is not None:
+            return self.compute_dtype
         return self.stem.Conv_0.weight.dtype
 
     def to_compute_dtype(self, dtype: torch.dtype) -> "DeepLabV3":
@@ -179,7 +187,7 @@ class DeepLabV3(nn.Module):
         ll = self.low_proj(low_level)
         y = torch.cat([y, ll.to(y.dtype)], dim=-1)
         y = self.classifier(self.dec1(self.dec0(y))).float()
-        if self.head_upsample == "quarter":
+        if self.head_upsample == "quarter" and not self.training:
             return y
         return _upsample(y, (x.shape[1], x.shape[2]))
 

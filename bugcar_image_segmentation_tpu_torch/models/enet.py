@@ -17,8 +17,12 @@ The public ``forward`` takes and returns NHWC, as the JAX package's model
 does; inside, tensors are NCHW views.  Flax's SAME padding is applied
 explicitly (for a stride-2 conv on an even input it pads only the bottom
 and right, unlike ``padding=1``).  BatchNorm runs from constants folded in
-f32 (``mul``, ``add`` buffers, refreshed when a state dict is loaded), so
-casting the module to bfloat16 afterwards keeps the f32 fold.
+f32 (``mul``, ``add`` buffers, refreshed when a state dict is loaded or by
+:meth:`ENet.fold`), so casting the module to bfloat16 afterwards keeps the
+f32 fold.  Train mode normalises with batch statistics as Flax does
+(``layers.BatchNorm``) and applies spatial dropout from masks drawn
+before the forward; its max pools keep ``amax``, whose gradient splits
+between tied maxima as ``jnp.max``'s does.
 :meth:`ENet.round_weights_bf16` serves from bf16-rounded weights
 (``_w16``) and refolds as the JAX engine folds bf16 leaves.
 """
@@ -26,16 +30,21 @@ casting the module to bfloat16 afterwards keeps the f32 fold.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.pooling import max_pool_with_indices, max_unpool
+from . import layers
 from .layers import _cast, _same_pads
 
 BN_EPS = 1e-3
+BN_MOMENTUM = 0.9
+# spatial dropout rates (models/enet.py:704-707 of the JAX package): stage 1
+# drops 1 % of the channels, every later bottleneck 10 %
+DROPOUT_STAGE1, DROPOUT = 0.01, 0.1
 
 
 class Conv(nn.Module):
@@ -84,16 +93,18 @@ class ConvTranspose(nn.Module):
         return y[:, :, :2 * h, :2 * w]
 
 
-class BatchNorm(nn.Module):
-    """Inference BatchNorm (eps 1e-3) with Flax's variable names."""
+class BatchNorm(layers.BatchNorm):
+    """BatchNorm over NCHW channels (eps 1e-3, momentum 0.9) with Flax's
+    variable names.  Eval mode runs from constants folded in f32
+    (``mul``, ``add``); train mode is :class:`~.layers.BatchNorm`'s, and
+    after the parameters or statistics change the fold is stale until
+    :meth:`fold` (:meth:`ENet.fold` refreshes every one)."""
 
-    def __init__(self, c: int, eps: float = BN_EPS):
-        super().__init__()
-        self.eps = eps
-        self.scale = nn.Parameter(torch.ones(c))
-        self.bias = nn.Parameter(torch.zeros(c))
-        self.register_buffer("mean", torch.zeros(c))
-        self.register_buffer("var", torch.ones(c))
+    channel_dim = 1
+
+    def __init__(self, c: int, eps: float = BN_EPS,
+                 momentum: float = BN_MOMENTUM):
+        super().__init__(c, eps, momentum)
         self.register_buffer("mul", torch.ones(c), persistent=False)
         self.register_buffer("add", torch.zeros(c), persistent=False)
         self.folded_bf16 = False
@@ -136,6 +147,8 @@ class BatchNorm(nn.Module):
         self.fold()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            return self.forward_train(x)
         return (x * _cast(self.mul, x)[:, None, None]
                 + _cast(self.add, x)[:, None, None])
 
@@ -198,14 +211,21 @@ class Bottleneck(nn.Module):
     Skip branch: identity / pool-with-indices + channel zero-pad / 1x1
     conv + unpool.  Sum, then PReLU.  ``forward`` takes NCHW and returns
     (y, pool indices or None); the indices are NHWC uint8.
+
+    Training applies spatial dropout to the main branch after the
+    expansion: ``drop`` is an (N, C) mask of 0 and 1 / (1 - rate) (Flax's
+    ``nn.Dropout(broadcast_dims=(1, 2))``), drawn by the caller
+    (:meth:`ENet.dropout_masks`) so that a recomputed forward reuses it.
     """
 
     def __init__(self, cin: int, features: int, kind: str = "regular",
-                 dilation: int = 1, projection_ratio: int = 4):
+                 dilation: int = 1, projection_ratio: int = 4,
+                 dropout_rate: float = DROPOUT):
         super().__init__()
         if kind not in ("regular", "dilated", "asymmetric", "down", "up"):
             raise ValueError(f"unknown bottleneck kind {kind!r}")
         self.kind, self.dilation, self.features = kind, dilation, features
+        self.dropout_rate = dropout_rate
         mid = features // projection_ratio
         if kind == "down":
             self.proj = ConvBNAct(cin, mid, (2, 2), stride=2)
@@ -227,6 +247,7 @@ class Bottleneck(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 pool_idx: Optional[torch.Tensor] = None,
+                drop: Optional[torch.Tensor] = None,
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         new_idx = None
         y = self.proj(x)
@@ -237,6 +258,8 @@ class Bottleneck(nn.Module):
         else:
             y = self.conv(y)
         y = self.expand(y)
+        if drop is not None:
+            y = y * _cast(drop, y)[:, :, None, None]
 
         if self.kind == "down":
             pooled, new_idx = max_pool_with_indices(_nhwc(x))
@@ -266,15 +289,23 @@ TRUNK = (
 class ENet(nn.Module):
     """ENet.  Input (N, H, W, 3) float NHWC (H, W divisible by 8); output
     (N, H, W, num_classes) float32 logits.  Computes in the dtype of its
-    parameters."""
+    parameters, or in :attr:`compute_dtype` where that is set (training in
+    bf16 from f32 master weights: each weight is cast where it is used).
+
+    Train mode (``train()``) normalises with batch statistics and takes
+    ``dropout``, the masks of :meth:`dropout_masks`; :meth:`fold` then
+    refreshes the eval-mode BatchNorm constants from the new weights."""
+
+    compute_dtype: Optional[torch.dtype] = None
 
     def __init__(self, num_classes: int = 15):
         super().__init__()
         self.num_classes = num_classes
         self.initial = InitialBlock()
-        self.b1_0 = Bottleneck(16, 64, "down")
+        self.b1_0 = Bottleneck(16, 64, "down", dropout_rate=DROPOUT_STAGE1)
         for i in range(1, 5):
-            setattr(self, f"b1_{i}", Bottleneck(64, 64, "regular"))
+            setattr(self, f"b1_{i}", Bottleneck(64, 64, "regular",
+                                                dropout_rate=DROPOUT_STAGE1))
         self.b2_0 = Bottleneck(64, 128, "down")
         for stage in (2, 3):
             for suffix, kind, dil in TRUNK:
@@ -319,8 +350,36 @@ class ENet(nn.Module):
             if isinstance(mod, BatchNorm):
                 mod.fold_bf16(round_shift=not name.startswith(("b2_", "b3_")))
 
+    @torch.no_grad()
+    def fold(self) -> None:
+        """Refold every BatchNorm from the current parameters and running
+        statistics (after training; serving from stale folds would run
+        the old weights)."""
+        for mod in self.modules():
+            if isinstance(mod, BatchNorm):
+                mod.fold()
+
+    def bottlenecks(self):
+        """(name, bottleneck) in forward order."""
+        return [(n, m) for n, m in self.named_children()
+                if isinstance(m, Bottleneck)]
+
+    def dropout_masks(self, generator: torch.Generator, n: int
+                      ) -> Dict[str, torch.Tensor]:
+        """Spatial-dropout masks for a batch of ``n``: per bottleneck an
+        (n, C) float32 tensor of 0 (dropped, with its rate) and 1 / (1 -
+        rate), drawn on the CPU from ``generator`` in forward order."""
+        out = {}
+        for name, blk in self.bottlenecks():
+            keep = 1.0 - blk.dropout_rate
+            kept = torch.rand((n, blk.features), generator=generator) < keep
+            out[name] = kept.float() / keep
+        return out
+
     @property
     def dtype(self) -> torch.dtype:
+        if self.compute_dtype is not None:
+            return self.compute_dtype
         return self.initial.Conv_0.weight.dtype
 
     def check_input(self, x: torch.Tensor) -> None:
@@ -329,38 +388,47 @@ class ENet(nn.Module):
                 f"ENet needs NHWC input with H, W divisible by 8 "
                 f"(3 levels of 2x down/up-sampling); got {tuple(x.shape)}")
 
-    def encode(self, x: torch.Tensor):
+    def _block(self, name: str, x: torch.Tensor, dropout,
+               pool_idx: Optional[torch.Tensor] = None):
+        drop = None if dropout is None else dropout[name]
+        return getattr(self, name)(x, pool_idx, drop)
+
+    def encode(self, x: torch.Tensor, dropout=None):
         """NHWC frame batch → (NCHW 1/8-res map, idx1, idx2): the stem,
         stage 1 and the stage-2 downsampling block."""
         self.check_input(x)
         x = _nchw(x.to(self.dtype))
         x = self.initial(x)
-        x, idx1 = self.b1_0(x)
+        x, idx1 = self._block("b1_0", x, dropout)
         for i in range(1, 5):
-            x, _ = getattr(self, f"b1_{i}")(x)
-        x, idx2 = self.b2_0(x)
+            x, _ = self._block(f"b1_{i}", x, dropout)
+        x, idx2 = self._block("b2_0", x, dropout)
         return x, idx1, idx2
 
-    def trunk(self, x: torch.Tensor) -> torch.Tensor:
+    def trunk(self, x: torch.Tensor, dropout=None) -> torch.Tensor:
         """The 16 stage-2/3 bottlenecks at 1/8 resolution (NCHW)."""
         for stage in (2, 3):
             for suffix, _, _ in TRUNK:
-                x, _ = getattr(self, f"b{stage}_{suffix}")(x)
+                x, _ = self._block(f"b{stage}_{suffix}", x, dropout)
         return x
 
     def decode(self, x: torch.Tensor, idx1: torch.Tensor,
-               idx2: torch.Tensor) -> torch.Tensor:
+               idx2: torch.Tensor, dropout=None) -> torch.Tensor:
         """Stages 4 and 5 and the full-resolution head → NHWC f32 logits."""
-        x, _ = self.b4_0(x, idx2)
-        x, _ = self.b4_1(x)
-        x, _ = self.b4_2(x)
-        x, _ = self.b5_0(x, idx1)
-        x, _ = self.b5_1(x)
+        x, _ = self._block("b4_0", x, dropout, idx2)
+        x, _ = self._block("b4_1", x, dropout)
+        x, _ = self._block("b4_2", x, dropout)
+        x, _ = self._block("b5_0", x, dropout, idx1)
+        x, _ = self._block("b5_1", x, dropout)
         return _nhwc(self.fullconv(x)).float()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x, idx1, idx2 = self.encode(x)
-        return self.decode(self.trunk(x), idx1, idx2)
+    def forward(self, x: torch.Tensor,
+                dropout: Optional[Dict[str, torch.Tensor]] = None
+                ) -> torch.Tensor:
+        """``dropout``: name → (N, C) mask (:meth:`dropout_masks`), applied
+        in train mode; None applies none."""
+        x, idx1, idx2 = self.encode(x, dropout)
+        return self.decode(self.trunk(x, dropout), idx1, idx2, dropout)
 
 
 __all__ = ["ENet", "InitialBlock", "Bottleneck", "ConvBNAct", "Conv",

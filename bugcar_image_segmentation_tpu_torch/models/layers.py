@@ -7,13 +7,14 @@
   OIHW), with stride, dilation, groups and Flax SAME padding or the
   centred ``k // 2``; it runs on the NCHW view of NHWC memory, so no copy
   is made at its boundaries;
-- :class:`BatchNorm`: inference ``nn.BatchNorm`` over the last axis in f32
-  from f32 parameters, cast to the input's dtype.
+- :class:`BatchNorm`: ``nn.BatchNorm`` over the last axis in f32 from f32
+  parameters, cast to the input's dtype: from the running statistics in
+  eval mode, from the batch's in train mode (module ``training``).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -75,19 +76,73 @@ class Conv(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Inference ``nn.BatchNorm`` over the last axis, as Flax computes it:
-    ``(x - mean) * (scale * rsqrt(var + eps)) + bias`` in f32, cast to the
-    input's dtype."""
+    """``nn.BatchNorm`` over the channel axis (the last; ENet's subclass
+    takes axis 1), as Flax computes it.
 
-    def __init__(self, c: int, eps: float):
+    Eval mode: ``(x - mean) * (scale * rsqrt(var + eps)) + bias`` in f32
+    from the running statistics, cast to the input's dtype.
+
+    Train mode (``self.training``): the same from the batch's statistics,
+    taken in f32 as Flax takes them (``use_fast_variance``): the biased
+    ``var = max(E[x²] - E[x]², 0)``.  Gradients reach ``scale``, ``bias``
+    and the input through the statistics.  The forward leaves the running
+    statistics alone; it keeps the batch's as :attr:`batch_stats`, and
+    :meth:`running_update` gives the new running values, ``m * running +
+    (1 - m) * batch`` with Flax's ``momentum`` m (0.99 here; ENet and
+    SegFormer take 0.9).  Flax stores the biased variance there too.
+
+    :attr:`sync` (None, or set by a data-parallel train step) sums the
+    per-channel sums of x and x² and their count over the ranks, so that
+    the statistics are the global batch's.
+
+    A BatchNorm is built in eval mode, so that a model serves unless it
+    is switched with ``train()`` (the train state does that).
+    """
+
+    channel_dim = -1
+
+    def __init__(self, c: int, eps: float, momentum: float = 0.99):
         super().__init__()
-        self.eps = eps
+        self.eps, self.momentum = eps, momentum
         self.scale = nn.Parameter(torch.ones(c))
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("mean", torch.zeros(c))
         self.register_buffer("var", torch.ones(c))
+        self.sync: Optional[Callable] = None
+        self.batch_stats: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        self.train(False)
+
+    def _view(self, t: torch.Tensor, ndim: int) -> torch.Tensor:
+        shape = [1] * ndim
+        shape[self.channel_dim] = -1
+        return t.view(shape)
+
+    def forward_train(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        c = self.channel_dim % x.dim()
+        dims = [d for d in range(x.dim()) if d != c]
+        n = x.numel() // x.shape[c]
+        moments = torch.stack([xf.sum(dims), (xf * xf).sum(dims)])
+        if self.sync is not None:
+            moments, n = self.sync(moments, n)
+        mean, mean2 = moments / n
+        var = torch.clamp_min(mean2 - mean * mean, 0.0)
+        self.batch_stats = (mean.detach(), var.detach())
+        mul = torch.rsqrt(var + self.eps) * self.scale.float()
+        y = ((xf - self._view(mean, x.dim())) * self._view(mul, x.dim())
+             + self._view(self.bias.float(), x.dim()))
+        return y.to(x.dtype)
+
+    @torch.no_grad()
+    def running_update(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The running (mean, var) after the last train-mode forward."""
+        mean, var = self.batch_stats
+        m = self.momentum
+        return (m * self.mean + (1 - m) * mean, m * self.var + (1 - m) * var)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            return self.forward_train(x)
         mul = self.scale.float() * torch.rsqrt(self.var.float() + self.eps)
         y = (x.float() - self.mean.float()) * mul + self.bias.float()
         return y.to(x.dtype)

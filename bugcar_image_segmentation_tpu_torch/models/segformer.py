@@ -47,7 +47,7 @@ way, so no head split or merge is ever copied.
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -259,7 +259,15 @@ class SegFormer(nn.Module):
     through the plain version instead of the kernel — the yardstick.
     ``quant`` (``_int8``): the W8A8 Dense products; ``quant`` or
     ``head_cascade`` (``_hc``): the folded head (module docstring).
+
+    Train mode (``train()``) routes as the Flax module does: attention
+    through the plain version (the CUDA kernels have no backward), the
+    textbook head at full resolution (no folded head, no quarter head),
+    ``fuse_bn`` from batch statistics (momentum 0.9);
+    :attr:`compute_dtype` computes in that dtype from f32 weights.
     """
+
+    compute_dtype: Optional[torch.dtype] = None
 
     def __init__(self, num_classes: int = 15,
                  widths: Sequence[int] = (32, 64, 160, 256),
@@ -299,8 +307,9 @@ class SegFormer(nn.Module):
             setattr(self, f"linear_c{s}", Dense(c, decoder_dim))
             cin = c
         self.fuse = Pointwise(4 * decoder_dim, decoder_dim, bias=False)
-        self.fuse_bn = BatchNorm(decoder_dim, BN_EPS)
+        self.fuse_bn = BatchNorm(decoder_dim, BN_EPS, momentum=0.9)
         self.classifier = Pointwise(decoder_dim, num_classes)
+        self.eval()     # serving routes unless train() is asked for
 
     @classmethod
     def preset(cls, size: str, **overrides) -> "SegFormer":
@@ -311,6 +320,8 @@ class SegFormer(nn.Module):
 
     @property
     def dtype(self) -> torch.dtype:
+        if self.compute_dtype is not None:
+            return self.compute_dtype
         return self.embed0.Conv_0.weight.dtype
 
     def to_compute_dtype(self, dtype: torch.dtype) -> "SegFormer":
@@ -360,7 +371,8 @@ class SegFormer(nn.Module):
                ) -> torch.Tensor:
         """Stage ``s``'s transformer blocks and norm: tokens → NHWC."""
         for b in range(self.depths[s]):
-            x = getattr(self, f"stage{s}_block{b}")(x, hw, self.xla_attention)
+            x = getattr(self, f"stage{s}_block{b}")(
+                x, hw, self.xla_attention or self.training)
         x = getattr(self, f"norm{s}")(x)
         return x.reshape(x.shape[0], hw[0], hw[1], x.shape[2])
 
@@ -370,7 +382,7 @@ class SegFormer(nn.Module):
         to 1/4, concat (stage 3 first), fuse, BatchNorm, ReLU, classify;
         the f32 logits upsampled to ``out_hw`` unless the head is
         "quarter".  With :attr:`folded_head`, :meth:`head_folded`."""
-        if self.folded_head:
+        if self.folded_head and not self.training:
             return self.head_folded(feats, out_hw)
         target = tuple(feats[0].shape[1:3])
         proj = []
@@ -386,7 +398,7 @@ class SegFormer(nn.Module):
                   ) -> torch.Tensor:
         y = torch.relu(self.fuse_bn(y))
         y = self.classifier(y).float()
-        if self.head_upsample == "quarter":
+        if self.head_upsample == "quarter" and not self.training:
             return y
         return upsample_bilinear(y, out_hw, axes=(1, 2))
 

@@ -27,7 +27,7 @@ in f32 from f32 parameters, and the logits are cast to f32.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -74,7 +74,11 @@ class UpConv2x(nn.Module):
 
 class UNet(nn.Module):
     """Input (N, H, W, 3) NHWC with H, W divisible by 16, computed in
-    :attr:`dtype`; output float32 logits (N, H, W, classes)."""
+    :attr:`dtype`; output float32 logits (N, H, W, classes).  Train mode
+    (``train()``): BatchNorm from batch statistics (momentum 0.99);
+    :attr:`compute_dtype` computes in that dtype from f32 weights."""
+
+    compute_dtype: Optional[torch.dtype] = None
 
     def __init__(self, num_classes: int = 15,
                  widths: Sequence[int] = (32, 64, 128, 256),
@@ -96,6 +100,8 @@ class UNet(nn.Module):
 
     @property
     def dtype(self) -> torch.dtype:
+        if self.compute_dtype is not None:
+            return self.compute_dtype
         return self.enc0.conv0.weight.dtype
 
     def to_compute_dtype(self, dtype: torch.dtype) -> "UNet":

@@ -15,7 +15,8 @@ the same functions and returns:
 Both compute softmax(q kᵀ / sqrt(d)) v with f32 accumulation, cast to q's
 dtype.  One CUDA source (``csrc/flash_attention.cu``) serves both layouts
 through two C entry points.  The wrappers run the plain version for CPU
-tensors; CUDA tensors launch the kernel or raise.  The kernel takes head
+tensors; CUDA tensors launch the kernel or raise.  The kernel has no
+backward, so CUDA inputs that require grad raise.  The kernel takes head
 dims 32 and 64 (SegFormer B0-B3) and contiguous float32 or bfloat16
 operands; anything else raises.
 """
@@ -68,6 +69,10 @@ def launch_args(name: str, q: torch.Tensor, k: torch.Tensor,
         _need(False, name, f"q must be a CUDA tensor, got {q.device}")
     _need(q.dim() == 4 and k.dim() == 4 and v.dim() == 4, name,
           "q, k, v must be 4-D")
+    if q.requires_grad or k.requires_grad or v.requires_grad:
+        _need(False, name, "the kernel has no backward; inputs that require "
+                           "grad take attention_reference (SegFormer does "
+                           "in train mode)")
     if q.dtype not in (torch.float32, torch.bfloat16):
         _need(False, name, f"q must be float32 or bfloat16, got {q.dtype}")
     b, h = q.shape[0], q.shape[1]

@@ -1,1 +1,2 @@
-"""Host-side utilities: the Flax checkpoint reader."""
+"""Host-side utilities: the Flax checkpoint reader and writer, and
+train-state checkpoints."""

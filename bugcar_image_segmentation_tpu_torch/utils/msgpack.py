@@ -1,5 +1,5 @@
-"""A reader for the msgpack that ``flax.serialization`` writes, without
-msgpack or Flax.
+"""A reader and a writer for the msgpack that ``flax.serialization``
+writes, without msgpack or Flax.
 
 ``flax.serialization.msgpack_serialize`` packs a tree of dicts whose
 leaves are numpy arrays; each array is msgpack ext type 1, whose payload
@@ -18,12 +18,19 @@ Raises :class:`ValueError` on what Flax files do not hold here: ext types
 2 (complex) and 3 (numpy scalar), other ext types, and Flax's chunked
 arrays (a leaf above 1 GiB is split into ``__msgpack_chunked_array__``
 maps).
+
+:func:`serialize` writes a tree of dicts (str keys) and arrays as
+``flax.serialization.msgpack_serialize`` writes it, byte for byte: the
+keys of every map in sorted order (Flax copies the tree through
+``jax.tree_util``, which sorts them), each header in its shortest form,
+and each array as ext type 1 ``[shape, dtype name, C-order bytes]``.
+A ``torch.bfloat16`` tensor is written as Flax writes a bf16 array.
 """
 
 from __future__ import annotations
 
 import struct
-from typing import Any
+from typing import Any, Tuple
 
 import numpy as np
 
@@ -144,4 +151,101 @@ def restore(data) -> Any:
     return out
 
 
-__all__ = ["restore"]
+def _header(out: bytearray, n: int, fix: int, fix_max: int,
+            codes: Tuple[int, ...]) -> None:
+    """A container / string / bin header: the fix form where n fits it,
+    else the first of 8-, 16-, 32-bit lengths (``codes``; 0 where a width
+    has no form) that holds n."""
+    if fix is not None and n <= fix_max:
+        out.append(fix | n)
+        return
+    for code, width in zip(codes, (1, 2, 4)):
+        if code and n < 1 << (8 * width):
+            out.append(code)
+            out += struct.pack(_BE[width], n)
+            return
+    raise ValueError(f"msgpack: length {n} is too large")
+
+
+def _pack_int(out: bytearray, v: int) -> None:
+    if 0 <= v < 0x80 or -0x20 <= v < 0:
+        out += struct.pack(">b" if v < 0 else ">B", v)
+    elif v >= 0:
+        for code, width in ((0xCC, 1), (0xCD, 2), (0xCE, 4), (0xCF, 8)):
+            if v < 1 << (8 * width):
+                out.append(code)
+                out += struct.pack(_BE[width], v)
+                return
+        raise ValueError(f"msgpack: {v} does not fit 64 bits")
+    else:
+        for code, width in ((0xD0, 1), (0xD1, 2), (0xD2, 4), (0xD3, 8)):
+            if v >= -(1 << (8 * width - 1)):
+                out.append(code)
+                out += struct.pack(_BE_SIGNED[width], v)
+                return
+        raise ValueError(f"msgpack: {v} does not fit 64 bits")
+
+
+def _pack_str(out: bytearray, text: str) -> None:
+    raw = text.encode("utf-8")
+    _header(out, len(raw), 0xA0, 31, (0xD9, 0xDA, 0xDB))
+    out += raw
+
+
+def _array_fields(leaf) -> Tuple[tuple, str, bytes]:
+    """(shape, dtype name, C-order bytes) of a numpy array or a tensor."""
+    if hasattr(leaf, "detach"):                    # a torch tensor
+        t = leaf.detach().cpu().contiguous()
+        if str(t.dtype) == "torch.bfloat16":
+            import torch
+            return (tuple(t.shape), "bfloat16",
+                    t.view(torch.int16).numpy().tobytes())
+        leaf = t.numpy()
+    if not isinstance(leaf, np.ndarray):
+        # Flax writes numpy scalars as ext type 3, which the reader refuses
+        raise ValueError(f"msgpack: a leaf must be an array or a tensor, "
+                         f"not {type(leaf).__name__}")
+    arr = leaf
+    if arr.dtype.hasobject or arr.dtype.fields is not None:
+        raise ValueError(f"msgpack: cannot write a {arr.dtype} array")
+    return tuple(arr.shape), arr.dtype.name, arr.tobytes("C")
+
+
+def _pack(out: bytearray, value: Any) -> None:
+    if isinstance(value, dict):
+        _header(out, len(value), 0x80, 15, (0, 0xDE, 0xDF))
+        for key in sorted(value):
+            if not isinstance(key, str):
+                raise ValueError(f"msgpack: map key {key!r} is not a str")
+            _pack_str(out, key)
+            _pack(out, value[key])
+        return
+    shape, name, data = _array_fields(value)
+    payload = bytearray()
+    _header(payload, 3, 0x90, 15, (0, 0xDC, 0xDD))
+    _header(payload, len(shape), 0x90, 15, (0, 0xDC, 0xDD))
+    for dim in shape:
+        _pack_int(payload, int(dim))
+    _pack_str(payload, name)
+    _header(payload, len(data), None, 0, (0xC4, 0xC5, 0xC6))
+    payload += data
+    n = len(payload)
+    fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    if n in fixext:
+        out.append(fixext[n])
+    else:
+        _header(out, n, None, 0, (0xC7, 0xC8, 0xC9))
+    out += struct.pack(">b", NDARRAY_EXT)
+    out += payload
+
+
+def serialize(tree: dict) -> bytes:
+    """``flax.serialization.msgpack_serialize`` of a tree of dicts (str
+    keys) whose leaves are numpy arrays or tensors, byte for byte (leaves
+    below Flax's 1 GiB chunking limit)."""
+    out = bytearray()
+    _pack(out, tree)
+    return bytes(out)
+
+
+__all__ = ["restore", "serialize"]

@@ -5,8 +5,10 @@ engines on the card against their plain versions, batch invariance (a
 frame's result alone equals its result in a batch, every engine family),
 the camera rig, bench.py's path (``enet_w16``, host resize, i420) on
 the card, the int8 product (``torch._int_mm``, exact against the int32
-plain version, small M padded) and the torch backend of the temporal
-fusion on the card.
+plain version, small M padded), the torch backend of the temporal
+fusion on the card, and training: bf16 ENet and SegFormer steps (the
+latter through the plain attention), one f32 ENet step against the same
+step on the CPU, and the data-parallel step on one NCCL rank.
 
 Needs an NVIDIA card (Hopper, sm_90a) and nvcc; every test here skips
 without a card.  This file imports neither JAX nor the JAX package, so it
@@ -303,7 +305,7 @@ def test_attention_extreme_logits(dev):
 
 
 @pytest.mark.parametrize("bad", ["d48", "noncontig", "half", "kvshape",
-                                 "device"])
+                                 "device", "grad"])
 @pytest.mark.parametrize("name", ["flash_attention", "flash_attention_t"])
 def test_attention_wrapper_rejects(dev, name, bad):
     from bugcar_image_segmentation_tpu_torch.ops.cuda import attention as att
@@ -319,6 +321,8 @@ def test_attention_wrapper_rejects(dev, name, bad):
         v = v[..., :16].contiguous()
     elif bad == "device":
         k = k.cpu()
+    elif bad == "grad":      # the kernel has no backward
+        q.requires_grad_()
     before = kcuda.LAUNCHES[name]
     with pytest.raises(ValueError):
         getattr(att, name)(q, k, v)
@@ -896,3 +900,115 @@ def test_fusion_torch_backend_on_card(dev):
         np.testing.assert_array_equal(got.cpu().numpy(),
                                       b.update(g, motion_m=m))
     np.testing.assert_array_equal(a.state.odds.cpu().numpy(), b._odds)
+
+
+def _train_batch(hw, n, seed, dev):
+    from bugcar_image_segmentation_tpu_torch import synthetic
+    pairs = [synthetic.road_scene(np.random.default_rng(seed + i), hw)
+             for i in range(n)]
+    frames = torch.as_tensor(np.stack([f for f, _ in pairs]), device=dev)
+    labels = torch.as_tensor(np.stack([lb for _, lb in pairs])
+                             .astype(np.int64), device=dev)
+    return frames, labels
+
+
+@pytest.mark.parametrize("name", ["enet", "segformer"])
+def test_train_steps_on_card_descend(dev, name):
+    """bf16 steps over f32 master weights: finite losses, a lower loss on
+    the batch after, master weights still f32, and no kernel launched
+    (SegFormer trains through the plain attention)."""
+    import bugcar_image_segmentation_tpu_torch as port
+    from bugcar_image_segmentation_tpu_torch.models import preprocess as pre
+    from bugcar_image_segmentation_tpu_torch.models.enet import ENet
+    from bugcar_image_segmentation_tpu_torch.models.segformer import \
+        SegFormer
+    from bugcar_image_segmentation_tpu_torch.training import (
+        AdamW, create_train_state, make_train_step, softmax_cross_entropy)
+    hw = (64, 128)
+    model = ENet(15) if name == "enet" else SegFormer.preset("b0")
+    model.compute_dtype = torch.bfloat16
+    state = create_train_state(model, (1,) + hw + (3,),
+                               optimizer=AdamW(1e-3), device="cuda")
+    frames, labels = _train_batch(hw, 4, 0, dev)
+    x = pre.preprocess_for_config(frames, port.ModelConfig(
+        input_width=hw[1], input_height=hw[0]))
+    step = make_train_step(model)
+    gen = torch.Generator().manual_seed(0)
+    kcuda.reset_launches()
+    losses = []
+    for _ in range(8):
+        state, loss = step(state, x, labels, gen)
+        losses.append(float(loss))
+    assert not any(kcuda.LAUNCHES.values())
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    with torch.no_grad():
+        assert float(softmax_cross_entropy(model(x), labels)) < losses[0]
+
+
+def test_train_step_f32_card_matches_cpu(dev):
+    """One f32 ENet step (TF32 off) on the card and on the CPU from the
+    same weights, batch and masks: loss 1e-4 relative, each gradient leaf
+    within 2e-2 relative L2 (ENet's kinks; chip_smoke.py's TRAIN_F32)."""
+    import bugcar_image_segmentation_tpu_torch as port
+    from bugcar_image_segmentation_tpu_torch.models import preprocess as pre
+    from bugcar_image_segmentation_tpu_torch.models.enet import ENet
+    from bugcar_image_segmentation_tpu_torch.training import (
+        create_train_state, make_train_step)
+    hw = (64, 128)
+    frames, labels = _train_batch(hw, 2, 5, torch.device("cpu"))
+    x = pre.preprocess_for_config(frames, port.ModelConfig(
+        input_width=hw[1], input_height=hw[0], dtype="float32"))
+    out = {}
+    for where in ("cuda", "cpu"):
+        model = ENet(15)
+        state = create_train_state(model, (1,) + hw + (3,), device=where)
+        masks = model.dropout_masks(torch.Generator().manual_seed(1), 2)
+        state, loss = make_train_step(model)(
+            state, x.to(where), labels.to(where), dropout=masks)
+        out[where] = (float(loss), {k: p.grad.cpu() for k, p in
+                                    model.named_parameters()})
+    (lc, gc), (lh, gh) = out["cuda"], out["cpu"]
+    assert abs(lc - lh) <= 1e-4 * abs(lh)
+    for k, g in gh.items():
+        assert float((gc[k] - g).norm() / g.norm().clamp_min(1e-30)) <= \
+            2e-2, k
+
+
+def test_dp_step_on_one_nccl_rank_equals_plain(dev):
+    """The data-parallel step on a one-rank NCCL group, bf16, with cuDNN's
+    deterministic algorithms, equals the plain step bit for bit."""
+    import socket
+
+    import bugcar_image_segmentation_tpu_torch as port
+    from bugcar_image_segmentation_tpu_torch.models import preprocess as pre
+    from bugcar_image_segmentation_tpu_torch.models.enet import ENet
+    from bugcar_image_segmentation_tpu_torch.parallel import make_mesh
+    from bugcar_image_segmentation_tpu_torch.training import (
+        create_train_state, make_train_step)
+    hw = (64, 128)
+    frames, labels = _train_batch(hw, 2, 9, dev)
+    x = pre.preprocess_for_config(frames, port.ModelConfig(
+        input_width=hw[1], input_height=hw[0]))
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        free = sock.getsockname()[1]
+    mesh = make_mesh(1, device="cuda", init_method=f"tcp://localhost:{free}",
+                     rank=0, timeout_s=60)
+    torch.backends.cudnn.deterministic = True
+    try:
+        out = []
+        for m in (None, mesh):
+            model = ENet(15)
+            model.compute_dtype = torch.bfloat16
+            state = create_train_state(model, (1,) + hw + (3,),
+                                       device="cuda")
+            state, loss = make_train_step(model, mesh=m)(
+                state, x, labels, torch.Generator().manual_seed(0))
+            out.append((loss, model.state_dict()))
+    finally:
+        torch.backends.cudnn.deterministic = False
+        mesh.close()
+    assert torch.equal(out[0][0], out[1][0])
+    for k, v in out[0][1].items():
+        assert torch.equal(v, out[1][1][k]), k

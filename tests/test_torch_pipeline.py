@@ -50,7 +50,8 @@ SLICE_MODULES = ("ops.cuda.attention", "models.segformer",
                  "utils.msgpack", "utils.checkpoint", "ops.cuda.probes",
                  "models.unet", "convert.flax_tree", "convert.flax_deeplab",
                  "convert.flax_unet", "ops.polar", "postproc", "ops.quant",
-                 "fusion", "fov", "msg", "evaluation")
+                 "fusion", "fov", "msg", "evaluation", "training.optim",
+                 "training.trainer", "training.augment", "parallel.mesh")
 GRID = (4.0, 4.0, 0.2)
 MODEL = dict(input_width=64, input_height=32, dtype="float32")
 
@@ -241,12 +242,17 @@ def _imported_roots(path: Path):
 # (absent on both hosts; importing msg needs none of it, as the poisoned
 # import below shows)
 ROS_EDGE = {"rospy", "nav_msgs", "geometry_msgs", "std_msgs"}
+# scripts/torch_train.py reads PNG/JPEG pairs through cv2 where cv2 is
+# installed: imported only inside read_pair for a file that is not .npy
+# (the poisoned import below loads the script too)
+EDGES = {PORT / "msg.py": ROS_EDGE,
+         REPO / "scripts" / "torch_train.py": {"cv2"}}
 
 
 def test_port_and_smoke_import_only_what_the_gpu_host_has():
     """Every import in the port, chip_smoke.py and scripts/torch_*.py
     names the stdlib, torch, numpy, scipy, einops or the port itself (and
-    msg.py's lazy ROS edge)."""
+    msg.py's lazy ROS edge, torch_train.py's lazy cv2 edge)."""
     allowed = set(sys.stdlib_module_names) | {
         "torch", "numpy", "scipy", "einops",
         "bugcar_image_segmentation_tpu_torch"}
@@ -254,7 +260,7 @@ def test_port_and_smoke_import_only_what_the_gpu_host_has():
              + sorted((REPO / "scripts").glob("torch_*.py")))
     assert len(files) > 15
     for f in files:
-        edge = ROS_EDGE if f == PORT / "msg.py" else set()
+        edge = EDGES.get(f, set())
         bad = set(_imported_roots(f)) - allowed - edge
         assert not bad, f"{f.relative_to(REPO)} imports {sorted(bad)}"
 
@@ -271,6 +277,8 @@ for m in mods:
 for m in {SLICE_MODULES!r}:
     assert "bugcar_image_segmentation_tpu_torch." + m in mods, m
 import chip_smoke
+import runpy
+runpy.run_path("scripts/torch_train.py", run_name="torch_train")
 leaked = [m for m in sys.modules if sys.modules[m] is not None
           and m.split(".")[0] in {FORBIDDEN!r}]
 assert not leaked, leaked
