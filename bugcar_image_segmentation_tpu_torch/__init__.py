@@ -48,6 +48,11 @@ Layer map:
   evaluation  accuracy / IoU and the bit-parity report
   synthetic   procedural road scenes (numpy)
 
+``deploy`` freezes an engine, a pipeline or the rig into a ``torch.export``
+artifact that loads without the model code; ``io`` holds the frame ring
+and the camera sources, ``utils.profiling`` the stage timers and the
+profiler trace.
+
 Entry points run on the GPU (``device="cuda"``) unless the caller passes
 ``device="cpu"``; on the CPU every kernel wrapper runs its plain PyTorch
 version.
@@ -57,11 +62,26 @@ from . import configs, geometry
 from .calibration import BEVTransform
 from .configs import CalibrationConfig, GridConfig, ModelConfig, RuntimeConfig
 from .fusion import FusionState, TemporalGridFusion, fuse_step
-from .grid import (OccupancyGridBuilder, create_occupancy_grid,
-                   create_occupancy_grid_binary)
-from .models.api import Engine, build_engine
-from .pipeline import (MultiCameraPipeline, Pipeline, segment_frame,
-                       stitch_grids)
+
+# The model code (models/, convert/, grid, pipeline) loads at the first use
+# of one of these names, not with the package: ``deploy.load_artifact``
+# runs an exported program with none of it imported.
+_LAZY = {"OccupancyGridBuilder": "grid", "create_occupancy_grid": "grid",
+         "create_occupancy_grid_binary": "grid", "Engine": "models.api",
+         "build_engine": "models.api", "MultiCameraPipeline": "pipeline",
+         "Pipeline": "pipeline", "segment_frame": "pipeline",
+         "stitch_grids": "pipeline"}
+
+
+def __getattr__(name: str):
+    if name in _LAZY:
+        import importlib
+        value = getattr(importlib.import_module(f".{_LAZY[name]}", __name__),
+                        name)
+        globals()[name] = value
+        return value
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 __version__ = "0.1.0"
 

@@ -21,13 +21,12 @@ occupied cells, the first hit along each ray; binary returns the pair
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple, Tuple, Union
 
 import torch
 
 from .configs import CalibrationConfig, GridConfig
-from .ops import morphology, polar, resize, warp
+from .ops import device_cache, morphology, polar, resize, warp
 
 
 class TemplateGeometry(NamedTuple):
@@ -217,7 +216,7 @@ class OccupancyGridBuilder:
         return self.build(segmap)
 
 
-@functools.lru_cache(maxsize=8)
+@device_cache(maxsize=8)
 def _cached_builder(cal: CalibrationConfig, grid: GridConfig, mode: str,
                     interpolation: str, device: str) -> OccupancyGridBuilder:
     return OccupancyGridBuilder(cal, grid, mode=mode,

@@ -72,8 +72,8 @@ class FusedBlock(nn.Module):
                     a2=a2, we=we.reshape(mid, c), s3=s3, b3=b3,
                     ao=block.out_act.alpha.detach().float())
         for name in self.NAMES:
-            self.register_buffer(name, vals[name].contiguous())
-        self.register_buffer("core", core.contiguous())
+            self.register_buffer(name, vals[name].detach().contiguous())
+        self.register_buffer("core", core.detach().contiguous())
         self.mid = mid
         # the bf16 kernel's weights: rounded to bf16 once, fragment order
         self.register_buffer("packed", pack_weights(

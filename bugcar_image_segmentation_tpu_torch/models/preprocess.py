@@ -8,12 +8,12 @@ dtype, NHWC.  Note the reference divides by 256, not 255; kept for parity.
 
 from __future__ import annotations
 
-import functools
 from typing import Tuple
 
 import torch
 
 from ..configs import ModelConfig
+from ..ops import device_cache
 from ..ops import resize as resize_ops
 
 # ImageNet statistics (reference models.py:17-18).
@@ -21,7 +21,7 @@ IMAGE_MEAN = (0.485, 0.456, 0.406)
 IMAGE_STD = (0.229, 0.224, 0.225)
 
 
-@functools.lru_cache(maxsize=16)
+@device_cache(maxsize=16)
 def _const(values: Tuple[float, ...], device: torch.device) -> torch.Tensor:
     return torch.tensor(values, dtype=torch.float32, device=device)
 

@@ -9,11 +9,12 @@ is one table lookup behind the argmax.
 
 from __future__ import annotations
 
-import functools
 from typing import Sequence
 
 import numpy as np
 import torch
+
+from ..ops import device_cache
 
 # Drivability classes (the values the grid builder consumes, grid.py).
 FLAT_NON_ROAD = 0
@@ -50,7 +51,7 @@ def remap_classes(class_map: torch.Tensor,
     return _lut(table, class_map.device)[class_map.long()]
 
 
-@functools.lru_cache(maxsize=16)
+@device_cache(maxsize=16)
 def _lut(table: tuple, device: torch.device) -> torch.Tensor:
     return torch.tensor(table, dtype=torch.uint8, device=device)
 

@@ -2,9 +2,12 @@
 a wrapper that launches it on CUDA tensors and its plain PyTorch version,
 which runs on CPU tensors.
 
-``LAUNCHES`` counts, per kernel, the launches its wrapper made; a run sets
-the counts to 0 (:func:`reset_launches`) and reads them afterwards to show
-that a path went through the kernels.
+``LAUNCHES`` counts, per kernel, the launches made; a run sets the counts
+to 0 (:func:`reset_launches`) and reads them afterwards to show that a path
+went through the kernels.  The four serving kernels count inside the CUDA
+implementation of their ``torch.library`` op (``library.py``), so a loaded
+``torch.export`` artifact counts too; the probes count in their wrappers.
+Importing this package registers those ops.
 """
 
 LAUNCHES = {"fused_bottleneck": 0, "flash_attention": 0,
@@ -15,3 +18,6 @@ LAUNCHES = {"fused_bottleneck": 0, "flash_attention": 0,
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+from . import library  # noqa: E402,F401  (registers the bugcar ops)

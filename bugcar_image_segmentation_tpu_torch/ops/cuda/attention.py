@@ -14,8 +14,10 @@ the same functions and returns:
 
 Both compute softmax(q kᵀ / sqrt(d)) v with f32 accumulation, cast to q's
 dtype.  One CUDA source (``csrc/flash_attention.cu``) serves both layouts
-through two C entry points.  The wrappers run the plain version for CPU
-tensors; CUDA tensors launch the kernel or raise.  The kernel has no
+through two C entry points.  The wrappers check their operands and call
+the ``bugcar::flash_attention[_t]`` ops (``library.py``): the plain
+version for CPU tensors; CUDA tensors launch the kernel (:func:`launch`)
+or raise.  The kernel has no
 backward, so CUDA inputs that require grad raise.  The kernel takes head
 dims 32 and 64 (SegFormer B0-B3) and contiguous float32 or bfloat16
 operands; anything else raises.
@@ -31,6 +33,7 @@ import torch
 
 from . import LAUNCHES
 from . import build as _build
+from . import library as _library
 
 HEAD_DIMS = (32, 64)
 
@@ -58,10 +61,11 @@ def _need(cond: bool, name: str, msg: str) -> None:
         raise ValueError(f"{name}: {msg}")
 
 
-def launch_args(name: str, q: torch.Tensor, k: torch.Tensor,
-                v: torch.Tensor, out: torch.Tensor) -> Tuple:
-    """Check a CUDA launch's operands and marshal them for the C launcher
-    ``bugcar_<name>`` (on the current stream)."""
+def check_args(name: str, q: torch.Tensor, k: torch.Tensor,
+               v: torch.Tensor) -> None:
+    """Check a CUDA launch's operands; raises ValueError.  Reads shapes,
+    dtypes, devices and grad flags only, so it runs on the fake tensors of
+    an export too."""
     channel_major = name == "flash_attention_t"
     # the messages are formatted only when a check fails (this runs on
     # every launch)
@@ -92,23 +96,40 @@ def launch_args(name: str, q: torch.Tensor, k: torch.Tensor,
         if t.shape != kv_shape:
             _need(False, name, f"{what} must have shape {kv_shape}, got "
                                f"{tuple(t.shape)}")
-    for t, what in ((q, "q"), (k, "k"), (v, "v"), (out, "out")):
+    for t, what in ((q, "q"), (k, "k"), (v, "v")):
         if t.device != q.device or t.dtype != q.dtype:
             _need(False, name, f"{what} must be a {q.dtype} tensor on "
                                f"{q.device}")
         _need(t.is_contiguous(), name, f"{what} must be contiguous")
+
+
+def launch_args(name: str, q: torch.Tensor, k: torch.Tensor,
+                v: torch.Tensor, out: torch.Tensor) -> Tuple:
+    """Check a CUDA launch's operands (:func:`check_args`, and ``out``)
+    and marshal them for the C launcher ``bugcar_<name>`` (on the current
+    stream)."""
+    check_args(name, q, k, v)
+    if out.device != q.device or out.dtype != q.dtype:
+        _need(False, name, f"out must be a {q.dtype} tensor on {q.device}")
+    _need(out.is_contiguous(), name, "out must be contiguous")
     _need(out.shape == q.shape, name, "out must have q's shape")
+    b, h = q.shape[0], q.shape[1]
+    if name == "flash_attention_t":
+        d, nq, nkv = q.shape[2], q.shape[3], k.shape[3]
+    else:
+        nq, d, nkv = q.shape[2], q.shape[3], k.shape[2]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     return (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b * h, nq, nkv, d, ctypes.c_float(1.0 / math.sqrt(d)),
             int(q.dtype == torch.bfloat16), stream)
 
 
-def _launch(name: str, q: torch.Tensor, k: torch.Tensor,
-            v: torch.Tensor) -> torch.Tensor:
-    _need(q.device.type == "cuda", name,
-          f"q must be a CPU or CUDA tensor, got {q.device}")
-    out = torch.empty_like(q)
+def launch(name: str, q: torch.Tensor, k: torch.Tensor,
+           v: torch.Tensor) -> torch.Tensor:
+    """The kernel ``name`` on CUDA tensors: the CUDA implementation of the
+    ``bugcar::<name>`` op (``ops/cuda/library.py``); raises if the build
+    or the launch fails."""
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
     with torch.cuda.device(q.device):
         args = launch_args(name, q, k, v, out)
         err = getattr(_build.library(), f"bugcar_{name}")(*args)
@@ -118,6 +139,14 @@ def _launch(name: str, q: torch.Tensor, k: torch.Tensor,
     return out
 
 
+def _checked(name: str, q: torch.Tensor, k: torch.Tensor,
+             v: torch.Tensor) -> None:
+    _need(q.device.type in ("cpu", "cuda"), name,
+          f"q must be a CPU or CUDA tensor, got {q.device}")
+    if q.device.type == "cuda":
+        check_args(name, q, k, v)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor,
                     v: torch.Tensor) -> torch.Tensor:
     """Softmax(q kᵀ / sqrt(d)) v, blockwise, no (N, N) materialisation.
@@ -125,27 +154,29 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     Args:
       q: (B, H, Nq, d); k/v: (B, H, Nkv, d); float32 or bfloat16.
 
-    Returns (B, H, Nq, d) in q's dtype.  CPU tensors run the plain
-    version; CUDA tensors launch the kernel or raise.
+    Returns (B, H, Nq, d) in q's dtype, through the
+    ``bugcar::flash_attention`` op (``ops/cuda/library.py``): CPU tensors
+    run the plain version, CUDA tensors launch the kernel or raise.  The
+    operands are checked before the op.
     """
-    if q.device.type == "cpu":
-        return attention_reference(q, k, v)
-    return _launch("flash_attention", q, k, v)
+    _checked("flash_attention", q, k, v)
+    return _library.flash_attention(q, k, v)
 
 
 def flash_attention_t(q: torch.Tensor, k: torch.Tensor,
                       v: torch.Tensor) -> torch.Tensor:
-    """:func:`flash_attention` over channel-major operands.
+    """:func:`flash_attention` over channel-major operands, through the
+    ``bugcar::flash_attention_t`` op.
 
     Args:
       q: (B, H, d, Nq); k/v: (B, H, d, Nkv); float32 or bfloat16.
 
     Returns (B, H, d, Nq) in q's dtype.
     """
-    if q.device.type == "cpu":
-        return attention_reference_t(q, k, v)
-    return _launch("flash_attention_t", q, k, v)
+    _checked("flash_attention_t", q, k, v)
+    return _library.flash_attention_t(q, k, v)
 
 
 __all__ = ["flash_attention", "flash_attention_t", "attention_reference",
-           "attention_reference_t", "launch_args", "HEAD_DIMS"]
+           "attention_reference_t", "launch_args", "check_args", "launch",
+           "HEAD_DIMS"]

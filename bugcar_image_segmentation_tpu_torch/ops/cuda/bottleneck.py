@@ -15,7 +15,9 @@ copy of the projected map.  Matmul operands are the activation dtype,
 accumulation is f32, and the intermediates are rounded to the activation
 dtype where the TPU kernel rounds them (y1, the 5x1 result, y2).
 
-:func:`fused_bottleneck` launches the kernel for CUDA tensors and runs
+:func:`fused_bottleneck` checks its arguments and calls the
+``bugcar::fused_bottleneck`` op (``library.py``), which launches the
+kernel for CUDA tensors (:func:`launch`) and runs
 :func:`fused_bottleneck_ref` for CPU tensors; there is no other fallback.
 bf16 launches run on the tensor cores and read the weights rounded to bf16
 once (:func:`pack_weights`), with the roundings of an f32 FMA chain over
@@ -33,6 +35,7 @@ import torch.nn.functional as F
 
 from . import LAUNCHES
 from . import build as _build
+from . import library as _library
 
 KINDS = ("regular", "dilated", "asymmetric")
 WIDTH = 128       # channels the kernel takes
@@ -353,8 +356,8 @@ def plan(n: int, h: int, w: int, kind: str, dilation: int,
             "y1_tile": [out[3], out[4]]}
 
 
-def _param(t: torch.Tensor, shape: Tuple[int, ...], name: str,
-           device: torch.device) -> int:
+def _check_param(t: torch.Tensor, shape: Tuple[int, ...], name: str,
+                 device: torch.device) -> None:
     # the messages are formatted only when a check fails (this runs for
     # every argument of every launch)
     if (t.device != device or t.dtype != torch.float32 or t.shape != shape
@@ -365,44 +368,53 @@ def _param(t: torch.Tensor, shape: Tuple[int, ...], name: str,
         _need(tuple(t.shape) == shape,
               f"{name} must have shape {shape}, got {tuple(t.shape)}")
         _need(False, f"{name} must be contiguous")
-    return t.data_ptr()
 
 
 _VEC_C, _VEC_M = (WIDTH,), (MID,)
 _WP, _WE, _W33 = (WIDTH, MID), (MID, WIDTH), (3, 3, MID, MID)
 _W51, _W15 = (5, 1, MID, MID), (1, 5, MID, MID)
+_CORE_ASYM = (10 * MID * MID,)
 
 
-def _core_ptr(wcore: Core, kind: str, device: torch.device
-              ) -> Tuple[int, torch.Tensor]:
-    """Pointer to the core taps as (taps, mid, mid) [in][out] f32, and the
-    tensor that owns the memory (kept alive across the launch)."""
+def kernel_core(wcore: Core, kind: str) -> torch.Tensor:
+    """The core taps as the kernel reads them: the (3, 3, 32, 32) HWIO
+    tensor, or for asymmetric one flat buffer, the 5x1 taps then the 1x5
+    taps (the views of one such buffer, as ``FusedBlock.wcore`` gives
+    them, are passed as that buffer; other pairs are concatenated)."""
     if kind != "asymmetric":
-        return _param(wcore, _W33, "wcore", device), wcore
+        return wcore
     w51, w15 = wcore
-    p51 = _param(w51, _W51, "wcore[0]", device)
-    p15 = _param(w15, _W15, "wcore[1]", device)
-    if p15 == p51 + w51.numel() * 4:
-        # Views of one buffer, 5x1 taps then 1x5 taps: the kernel's layout.
-        return p51, w51
-    both = torch.cat([w51.reshape(-1), w15.reshape(-1)])
-    return both.data_ptr(), both
+    base = w51._base
+    if (base is not None and base is w15._base and base.dim() == 1
+            and base.numel() == w51.numel() + w15.numel()
+            and w51.storage_offset() == base.storage_offset()
+            and w15.storage_offset() == base.storage_offset() + w51.numel()
+            and w51.is_contiguous() and w15.is_contiguous()):
+        return base
+    return torch.cat([w51.reshape(-1), w15.reshape(-1)])
 
 
-def launch_args(x: torch.Tensor, out: torch.Tensor,
-                wp: torch.Tensor, s1: torch.Tensor, b1: torch.Tensor,
-                a1: torch.Tensor, wcore: Core,
-                s2: torch.Tensor, b2: torch.Tensor, a2: torch.Tensor,
-                we: torch.Tensor, s3: torch.Tensor, b3: torch.Tensor,
-                ao: torch.Tensor, *, kind: str = "regular",
-                dilation: int = 1, packed: Optional[torch.Tensor] = None
-                ) -> Tuple[tuple, tuple]:
-    """Check a CUDA launch's arguments and marshal them for the C launcher:
-    (the launcher's argument tuple, on the current stream; the tensors
-    that own memory it points to and were made here -- the core taps, the
-    packed weights -- to keep alive while the tuple is used).  bf16 x
-    needs the packed weights (:func:`pack_weights`); None packs them
-    here."""
+def split_core(core: torch.Tensor, kind: str, mid: int = MID) -> Core:
+    """:func:`kernel_core`'s buffer back as the wrapper's ``wcore``: the
+    tensor itself, or the (5x1, 1x5) pair as views of it."""
+    if kind != "asymmetric":
+        return core
+    m2 = mid * mid
+    return (core[:5 * m2].view(5, 1, mid, mid),
+            core[5 * m2:].view(1, 5, mid, mid))
+
+
+def check_args(x: torch.Tensor, wp: torch.Tensor, s1: torch.Tensor,
+               b1: torch.Tensor, a1: torch.Tensor, wcore: Core,
+               s2: torch.Tensor, b2: torch.Tensor, a2: torch.Tensor,
+               we: torch.Tensor, s3: torch.Tensor, b3: torch.Tensor,
+               ao: torch.Tensor, *, kind: str = "regular",
+               dilation: int = 1, packed: Optional[torch.Tensor] = None
+               ) -> None:
+    """Check a CUDA launch's arguments; raises ValueError.  Reads shapes,
+    dtypes and devices only, so it runs on the fake tensors of an export
+    too.  ``wcore`` as the wrapper takes it, or as :func:`kernel_core`
+    gives it."""
     if kind not in KINDS:
         raise ValueError(f"unknown bottleneck kind {kind!r}")
     # the messages are formatted only when a check fails
@@ -414,36 +426,95 @@ def launch_args(x: torch.Tensor, out: torch.Tensor,
     if not bf16 and x.dtype != torch.float32:
         _need(False, f"x must be float32 or bfloat16, got {x.dtype}")
     _need(x.is_contiguous(), "x must be contiguous")
+    if int(dilation) < 1:
+        _need(False, f"dilation must be >= 1, got {dilation}")
+    dev = x.device
+    if kind != "asymmetric":
+        _check_param(wcore, _W33, "wcore", dev)
+    elif isinstance(wcore, torch.Tensor):
+        _check_param(wcore, _CORE_ASYM, "wcore", dev)
+    else:
+        _check_param(wcore[0], _W51, "wcore[0]", dev)
+        _check_param(wcore[1], _W15, "wcore[1]", dev)
+    for t, shape, name in ((wp, _WP, "wp"), (s1, _VEC_M, "s1"),
+                           (b1, _VEC_M, "b1"), (a1, _VEC_M, "a1"),
+                           (s2, _VEC_M, "s2"), (b2, _VEC_M, "b2"),
+                           (a2, _VEC_M, "a2"), (we, _WE, "we"),
+                           (s3, _VEC_C, "s3"), (b3, _VEC_C, "b3"),
+                           (ao, _VEC_C, "ao")):
+        _check_param(t, shape, name, dev)
+    if bf16 and packed is not None and (
+            packed.device != dev or packed.dtype != torch.bfloat16
+            or packed.shape != (pack_elems(kind),)
+            or not packed.is_contiguous()):
+        _need(False, f"packed must be a contiguous bfloat16 tensor of "
+                     f"shape ({pack_elems(kind)},) on {dev} (pack_weights"
+                     f"), got {packed.dtype} {tuple(packed.shape)} on "
+                     f"{packed.device}")
+
+
+def launch_args(x: torch.Tensor, out: torch.Tensor,
+                wp: torch.Tensor, s1: torch.Tensor, b1: torch.Tensor,
+                a1: torch.Tensor, wcore: Core,
+                s2: torch.Tensor, b2: torch.Tensor, a2: torch.Tensor,
+                we: torch.Tensor, s3: torch.Tensor, b3: torch.Tensor,
+                ao: torch.Tensor, *, kind: str = "regular",
+                dilation: int = 1, packed: Optional[torch.Tensor] = None
+                ) -> Tuple[tuple, tuple]:
+    """Check a CUDA launch's arguments (:func:`check_args`, and ``out``)
+    and marshal them for the C launcher: (the launcher's argument tuple,
+    on the current stream; the tensors that own memory it points to and
+    were made here -- the core taps, the packed weights -- to keep alive
+    while the tuple is used).  bf16 x needs the packed weights
+    (:func:`pack_weights`); None packs them here."""
+    check_args(x, wp, s1, b1, a1, wcore, s2, b2, a2, we, s3, b3, ao,
+               kind=kind, dilation=dilation, packed=packed)
     _need(out.shape == x.shape and out.dtype == x.dtype
           and out.device == x.device and out.is_contiguous(),
           "out must be a contiguous tensor like x")
-    dilation = int(dilation)
-    if dilation < 1:
-        _need(False, f"dilation must be >= 1, got {dilation}")
-    dev = x.device
+    bf16 = x.dtype == torch.bfloat16
     n, h, w, c = x.shape
-    core_ptr, core_owner = _core_ptr(wcore, kind, dev)
-    ptrs = (_param(wp, _WP, "wp", dev), _param(s1, _VEC_M, "s1", dev),
-            _param(b1, _VEC_M, "b1", dev), _param(a1, _VEC_M, "a1", dev),
-            core_ptr, _param(s2, _VEC_M, "s2", dev),
-            _param(b2, _VEC_M, "b2", dev), _param(a2, _VEC_M, "a2", dev),
-            _param(we, _WE, "we", dev), _param(s3, _VEC_C, "s3", dev),
-            _param(b3, _VEC_C, "b3", dev), _param(ao, _VEC_C, "ao", dev))
+    core = kernel_core(wcore, kind) if not isinstance(wcore, torch.Tensor) \
+        else wcore
+    ptrs = (wp.data_ptr(), s1.data_ptr(), b1.data_ptr(), a1.data_ptr(),
+            core.data_ptr(), s2.data_ptr(), b2.data_ptr(), a2.data_ptr(),
+            we.data_ptr(), s3.data_ptr(), b3.data_ptr(), ao.data_ptr())
     pack_ptr = 0
     if bf16:
         if packed is None:
-            packed = pack_weights(wp, wcore, we, kind=kind)
-        if (packed.device != dev or packed.dtype != torch.bfloat16
-                or packed.shape != (pack_elems(kind),)
-                or not packed.is_contiguous()):
-            _need(False, f"packed must be a contiguous bfloat16 tensor of "
-                         f"shape ({pack_elems(kind)},) on {dev} (pack_weights"
-                         f"), got {packed.dtype} {tuple(packed.shape)} on "
-                         f"{packed.device}")
+            packed = pack_weights(wp, split_core(core, kind), we, kind=kind)
         pack_ptr = packed.data_ptr()
     args = (x.data_ptr(), out.data_ptr(), n, h, w, c, MID, *ptrs, pack_ptr,
-            int(kind == "asymmetric"), dilation, int(bf16), _stream(dev))
-    return args, (core_owner, packed)
+            int(kind == "asymmetric"), int(dilation), int(bf16),
+            _stream(x.device))
+    return args, (core, packed)
+
+
+def launch(x: torch.Tensor, wp: torch.Tensor, s1: torch.Tensor,
+           b1: torch.Tensor, a1: torch.Tensor, core: torch.Tensor,
+           s2: torch.Tensor, b2: torch.Tensor, a2: torch.Tensor,
+           we: torch.Tensor, s3: torch.Tensor, b3: torch.Tensor,
+           ao: torch.Tensor, packed: Optional[torch.Tensor], kind: str,
+           dilation: int) -> torch.Tensor:
+    """The kernel on CUDA tensors, the core taps as :func:`kernel_core`
+    gives them: the CUDA implementation of the ``bugcar::fused_bottleneck``
+    op (``ops/cuda/library.py``); raises if the build or the launch
+    fails."""
+    out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    with torch.cuda.device(x.device):
+        args, _keep_alive = launch_args(
+            x, out, wp, s1, b1, a1, core, s2, b2, a2, we, s3, b3, ao,
+            kind=kind, dilation=dilation, packed=packed)
+        lib = _build.library()
+        err = lib.bugcar_fused_bottleneck(*args)
+    if err != 0:
+        smem = lib.bugcar_fused_bottleneck_smem_bytes(
+            int(kind == "asymmetric"), x.shape[2], int(dilation),
+            int(x.dtype == torch.bfloat16))
+        _build.check(err, f"fused_bottleneck launch (x {tuple(x.shape)}, "
+                          f"{smem} B of shared memory per block)")
+    LAUNCHES["fused_bottleneck"] += 1
+    return out
 
 
 def fused_bottleneck(x: torch.Tensor,
@@ -470,35 +541,27 @@ def fused_bottleneck(x: torch.Tensor,
       packed: for bf16 x on the card, :func:`pack_weights` of wp, wcore
         and we, made once by the caller; None packs them at every call.
 
-    Returns (N, H, W, 128) in x's dtype.  CPU tensors run the plain
-    version; CUDA tensors launch the kernel or raise.
+    Returns (N, H, W, 128) in x's dtype, through the
+    ``bugcar::fused_bottleneck`` op (``ops/cuda/library.py``): CPU tensors
+    run the plain version, CUDA tensors launch the kernel or raise.  The
+    arguments are checked before the op.
     """
     if kind not in KINDS:
         raise ValueError(f"unknown bottleneck kind {kind!r}")
-    if x.device.type == "cpu":
-        return fused_bottleneck_ref(x, wp, s1, b1, a1, wcore, s2, b2, a2,
-                                    we, s3, b3, ao, kind=kind,
-                                    dilation=dilation)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         _need(False, f"x must be a CPU or CUDA tensor, got {x.device}")
-    out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        args, _keep_alive = launch_args(
-            x, out, wp, s1, b1, a1, wcore, s2, b2, a2, we, s3, b3, ao,
-            kind=kind, dilation=dilation, packed=packed)
-        lib = _build.library()
-        err = lib.bugcar_fused_bottleneck(*args)
-    if err != 0:
-        smem = lib.bugcar_fused_bottleneck_smem_bytes(
-            int(kind == "asymmetric"), x.shape[2], int(dilation),
-            int(x.dtype == torch.bfloat16))
-        _build.check(err, f"fused_bottleneck launch (x {tuple(x.shape)}, "
-                          f"{smem} B of shared memory per block)")
-    LAUNCHES["fused_bottleneck"] += 1
-    return out
+    if x.device.type == "cuda":
+        check_args(x, wp, s1, b1, a1, wcore, s2, b2, a2, we, s3, b3, ao,
+                   kind=kind, dilation=dilation, packed=packed)
+        if packed is None and x.dtype == torch.bfloat16:
+            packed = pack_weights(wp, wcore, we, kind=kind)
+    return _library.fused_bottleneck(
+        x, wp, s1, b1, a1, kernel_core(wcore, kind), s2, b2, a2, we, s3, b3,
+        ao, packed, kind, int(dilation))
 
 
 __all__ = ["fused_bottleneck", "fused_bottleneck_ref", "fold_bn",
            "fused_bottleneck_chain", "chain_points", "rounds_apart",
-           "RoundingPoint", "launch_args", "pack_weights", "pack_elems",
+           "RoundingPoint", "launch_args", "check_args", "launch",
+           "kernel_core", "split_core", "pack_weights", "pack_elems",
            "plan", "KINDS"]

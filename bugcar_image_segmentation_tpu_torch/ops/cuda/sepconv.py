@@ -16,8 +16,10 @@ with stride 1 (pad 1 on every side) or stride 2 under Flax SAME padding
 on even H, W (output (r, c) reads input rows and columns 2r..2r+2, zero
 past the bottom and right edge).  BatchNorm comes folded (:func:`fold_bn`).
 
-:func:`fused_sepconv` launches the kernel for CUDA tensors and runs
-:func:`sepconv_reference` for CPU tensors; there is no other fallback.
+:func:`fused_sepconv` checks its arguments and calls the
+``bugcar::fused_sepconv`` op (``library.py``), which launches the kernel
+for CUDA tensors (:func:`launch`) and runs :func:`sepconv_reference` for
+CPU tensors; there is no other fallback.
 
 :func:`plan` decides how a launch is cut -- pixel tile, thread block
 cluster, weight ring -- from (H, W, C, F, stride) alone, never from the
@@ -36,6 +38,7 @@ import torch.nn.functional as F
 
 from . import LAUNCHES
 from . import build as _build
+from . import library as _library
 from .bottleneck import fold_bn
 
 
@@ -200,8 +203,8 @@ def plan(h: int, w: int, c: int, f: int, stride: int) -> Plan:
                 slices, ftiles)
 
 
-def _param(t: torch.Tensor, shape, name: str, device: torch.device,
-           dtype: torch.dtype = torch.float32) -> int:
+def _check_param(t: torch.Tensor, shape, name: str, device: torch.device,
+                 dtype: torch.dtype = torch.float32) -> None:
     # the messages are formatted only for a tensor that fails: this runs
     # for six tensors a launch, 55 launches an Xception frame
     if (t.device != device or t.dtype != dtype or t.shape != tuple(shape)
@@ -211,16 +214,14 @@ def _param(t: torch.Tensor, shape, name: str, device: torch.device,
         _need(tuple(t.shape) == tuple(shape),
               f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
         _need(t.is_contiguous(), f"{name} must be contiguous")
-    return t.data_ptr()
 
 
-def launch_args(x: torch.Tensor, out: torch.Tensor, wdw: torch.Tensor,
-                s1: torch.Tensor, b1: torch.Tensor, wpw: torch.Tensor,
-                s2: torch.Tensor, b2: torch.Tensor, *, strides: int = 1,
-                act_out: bool = True) -> tuple:
-    """Check a CUDA launch's arguments and marshal them, with the launch
-    :func:`plan`, for the C launcher ``bugcar_fused_sepconv`` (on the
-    current stream); ``wpw`` in x's dtype."""
+def check_args(x: torch.Tensor, wdw: torch.Tensor, s1: torch.Tensor,
+               b1: torch.Tensor, wpw: torch.Tensor, s2: torch.Tensor,
+               b2: torch.Tensor, *, strides: int = 1) -> None:
+    """Check a CUDA launch's operands (``wpw`` in x's dtype); raises
+    ValueError.  Reads shapes, dtypes and devices only, so it runs on the
+    fake tensors of an export too."""
     _check_stride(x, strides)
     if x.device.type != _CARD:
         _need(False, f"x must be a CUDA tensor, got {x.device}")
@@ -236,22 +237,58 @@ def launch_args(x: torch.Tensor, out: torch.Tensor, wdw: torch.Tensor,
                      f"{tuple(wpw.shape)}")
     if n > 65535:
         _need(False, f"batch {n} exceeds the grid's 65535")
+    dev = x.device
+    for t, shape, name, dtype in (
+            (wdw, (3, 3, 1, c), "wdw", torch.float32),
+            (s1, (c,), "s1", torch.float32), (b1, (c,), "b1", torch.float32),
+            (wpw, (c, f), "wpw", x.dtype), (s2, (f,), "s2", torch.float32),
+            (b2, (f,), "b2", torch.float32)):
+        _check_param(t, shape, name, dev, dtype)
+    plan(h, w, c, f, strides)
+
+
+def launch_args(x: torch.Tensor, out: torch.Tensor, wdw: torch.Tensor,
+                s1: torch.Tensor, b1: torch.Tensor, wpw: torch.Tensor,
+                s2: torch.Tensor, b2: torch.Tensor, *, strides: int = 1,
+                act_out: bool = True) -> tuple:
+    """Check a CUDA launch's arguments (:func:`check_args`, and ``out``)
+    and marshal them, with the launch :func:`plan`, for the C launcher
+    ``bugcar_fused_sepconv`` (on the current stream); ``wpw`` in x's
+    dtype."""
+    check_args(x, wdw, s1, b1, wpw, s2, b2, strides=strides)
+    n, h, w, c = x.shape
+    f = wpw.shape[-1]
     ho, wo = h // strides, w // strides
     if not (out.shape == (n, ho, wo, f) and out.dtype == x.dtype
             and out.device == x.device and out.is_contiguous()):
         _need(False, f"out must be a contiguous {x.dtype} (N, H/s, W/s, F) "
                      f"tensor")
-    dev = x.device
-    ptrs = [_param(wdw, (3, 3, 1, c), "wdw", dev),
-            _param(s1, (c,), "s1", dev), _param(b1, (c,), "b1", dev),
-            _param(wpw, (c, f), "wpw", dev, x.dtype),
-            _param(s2, (f,), "s2", dev), _param(b2, (f,), "b2", dev)]
     pl = plan(h, w, c, f, strides)
-    stream = _stream(dev)
-    return (x.data_ptr(), *ptrs, out.data_ptr(), n, h, w, c, f,
-            int(strides), int(bool(act_out)),
+    stream = _stream(x.device)
+    return (x.data_ptr(), wdw.data_ptr(), s1.data_ptr(), b1.data_ptr(),
+            wpw.data_ptr(), s2.data_ptr(), b2.data_ptr(), out.data_ptr(),
+            n, h, w, c, f, int(strides), int(bool(act_out)),
             int(x.dtype == torch.bfloat16), pl.tile_rows, pl.cluster,
             pl.stages, stream)
+
+
+def launch(x: torch.Tensor, wdw: torch.Tensor, s1: torch.Tensor,
+           b1: torch.Tensor, wpw: torch.Tensor, s2: torch.Tensor,
+           b2: torch.Tensor, strides: int, act_out: bool) -> torch.Tensor:
+    """The kernel on CUDA tensors (``wpw`` in x's dtype): the CUDA
+    implementation of the ``bugcar::fused_sepconv`` op
+    (``ops/cuda/library.py``); raises if the build or the launch fails."""
+    n, h, w, _ = x.shape
+    out = torch.empty((n, h // strides, w // strides, wpw.shape[-1]),
+                      dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        args = launch_args(x, out, wdw, s1, b1, wpw, s2, b2,
+                           strides=strides, act_out=act_out)
+        err = _build.library().bugcar_fused_sepconv(*args)
+    _build.check(err, f"fused_sepconv launch (x {tuple(x.shape)}, F "
+                      f"{wpw.shape[-1]}, stride {strides}, {x.dtype})")
+    LAUNCHES["fused_sepconv"] += 1
+    return out
 
 
 def fused_sepconv(x: torch.Tensor, wdw: torch.Tensor,
@@ -270,29 +307,27 @@ def fused_sepconv(x: torch.Tensor, wdw: torch.Tensor,
       strides: 1 or 2 (both SAME-padded).
       act_out: trailing ReLU (blocks' sep2 omits it).
 
-    Returns (N, H/strides, W/strides, F) in x's dtype.  CPU tensors run
-    the plain version; CUDA tensors launch the kernel or raise.
+    Returns (N, H/strides, W/strides, F) in x's dtype, through the
+    ``bugcar::fused_sepconv`` op (``ops/cuda/library.py``): CPU tensors run
+    the plain version, CUDA tensors launch the kernel or raise.  The
+    arguments are checked before the op.
     """
-    if x.device.type == "cpu":
-        return sepconv_reference(x, wdw, s1, b1, wpw, s2, b2,
-                                 strides=strides, act_out=act_out)
     _check_stride(x, strides)
-    _need(x.device.type == "cuda", f"x must be a CPU or CUDA tensor, got "
-                                   f"{x.device}")
-    n, h, w, _ = x.shape
-    out = torch.empty((n, h // strides, w // strides, wpw.shape[-1]),
-                      dtype=x.dtype, device=x.device)
+    if x.device.type not in ("cpu", "cuda"):
+        _need(False, f"x must be a CPU or CUDA tensor, got {x.device}")
     if wpw.dtype == torch.float32 and x.dtype != torch.float32:
         wpw = wpw.to(x.dtype)   # rounded where the kernel would round it
-    with torch.cuda.device(x.device):
-        args = launch_args(x, out, wdw, s1, b1, wpw, s2, b2,
-                           strides=strides, act_out=act_out)
-        err = _build.library().bugcar_fused_sepconv(*args)
-    _build.check(err, f"fused_sepconv launch (x {tuple(x.shape)}, F "
-                      f"{wpw.shape[-1]}, stride {strides}, {x.dtype})")
-    LAUNCHES["fused_sepconv"] += 1
-    return out
+    if torch.compiler.is_exporting():
+        # the fake CUDA tensors of an export may carry other strides than
+        # the card gives the same activation (a cuDNN conv's layout): the
+        # program asks for the NHWC memory the kernel reads
+        x = x.contiguous()
+    if x.device.type == "cuda":
+        check_args(x, wdw, s1, b1, wpw, s2, b2, strides=strides)
+    return _library.fused_sepconv(x, wdw, s1, b1, wpw, s2, b2, int(strides),
+                                  bool(act_out))
 
 
 __all__ = ["fused_sepconv", "sepconv_reference", "fold_bn", "launch_args",
+           "check_args", "launch",
            "plan", "Plan", "smem_bytes"]

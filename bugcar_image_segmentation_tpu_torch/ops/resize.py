@@ -24,6 +24,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from . import device_cache
+
 
 @functools.lru_cache(maxsize=64)
 def _nearest_indices(src: int, dst: int) -> np.ndarray:
@@ -42,7 +44,7 @@ def _linear_axis(src: int, dst: int):
     return i0, i1, frac
 
 
-@functools.lru_cache(maxsize=128)
+@device_cache(maxsize=128)
 def _on_device(kind: str, src: int, dst: int, device: torch.device):
     if kind == "nearest":
         return torch.as_tensor(_nearest_indices(src, dst), device=device)

@@ -19,7 +19,8 @@ The fixed points are Python loops over torch ops: each propagation step
 is monotone (labels only fall, the reached set only grows), so the loop
 checks for a fixed point every :data:`CHECK_EVERY` steps, one host sync a
 check, and the number of steps past the fixed point does not change the
-result.  Every function takes leading batch axes, each frame's result the
+result.  An exported program (``deploy.py``) runs them as a traced
+``while_loop`` instead.  Every function takes leading batch axes, each frame's result the
 one it gets alone.
 """
 
@@ -39,13 +40,34 @@ CHECK_EVERY = 8      # propagation steps between fixed-point checks
 
 
 def _fixed_point(step, state: torch.Tensor) -> torch.Tensor:
-    """Apply ``step`` until ``state`` stops changing."""
+    """Apply ``step`` until ``state`` stops changing.  Under
+    ``torch.export`` the loop is a traced ``while_loop`` that tests after
+    every step, as the JAX package's ``lax.while_loop`` does; steps past
+    the fixed point change nothing, so both give the same labels."""
+    if torch.compiler.is_exporting():
+        return _traced_fixed_point(step, state)
     while True:
         before = state
         for _ in range(CHECK_EVERY):
             state = step(state)
         if torch.equal(state, before):
             return state
+
+
+def _traced_fixed_point(step, state: torch.Tensor) -> torch.Tensor:
+    from torch._higher_order_ops import while_loop
+
+    state = step(state)     # the carry takes the step's dtype from here
+
+    def changed(s: torch.Tensor, going: torch.Tensor) -> torch.Tensor:
+        return going.clone()
+
+    def body(s: torch.Tensor, going: torch.Tensor):
+        nxt = step(s)
+        return nxt, (nxt != s).any()
+
+    going = torch.ones((), dtype=torch.bool, device=state.device)
+    return while_loop(changed, body, (state, going))[0]
 
 
 def label_components(mask: torch.Tensor) -> torch.Tensor:

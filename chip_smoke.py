@@ -138,6 +138,27 @@ phase with its elapsed seconds:
    ``scripts/torch_train.py`` for 3 steps on ``.npy`` pairs with
    ``--augment``; and the data-parallel step on a one-rank NCCL group
    equal to the plain step bit for bit.
+18. ``deploy_path`` — ``deploy.py``'s artifacts (``torch.export``, the
+   serving kernels as ``bugcar::`` ops) at full width with seeded
+   weights: bench.py's ``enet_fused_w16`` pipeline (host resize, i420,
+   the packed (384, 512) planes in), ``segformer_b0`` ``predict`` at
+   1024x1024 and ``deeplab_xception_fs`` ``predict`` at 1024x512 (batch 1
+   each; Xception's symbolic-batch export is refused on the card, and the
+   refusal recorded) and the 4-camera rig on ``enet_fused_w16``: export
+   and load seconds, bytes, outputs held bit for bit to the live program
+   on 8 inputs (a share above ``TIE_BUDGET`` fails, with the first
+   differing output named), the kernel launches a run read from
+   ``LAUNCHES`` (16, 2 + 6, 55, 16), ms a run of artifact and live taking
+   turns; the pipeline artifact loaded again in a process where
+   ``models``, ``convert``, ``pipeline`` and ``grid`` cannot be imported
+   gives the same grid.
+19. ``serve_cli`` — the serving CLIs in this process (``load_script``):
+   ``torch_inference_video.py --synthetic 200`` with ``--model enet``
+   (200/200 frames, 0 dropped, fps) and ``--synthetic 60 --model
+   segformer`` (8 attention launches a frame), ``torch_serve_rig.py
+   --synthetic 50 --model enet_fused_w16`` with four calibrations (16
+   launches a tick) and ``torch_export_model.py`` (export, then ``--load
+   --smoke``: 16 launches on the card).
 
 Every path's grids of one frame alone, in a batch and in a stream must be
 equal, in bf16 too (SegFormer's engines run the backbone frame by frame,
@@ -262,6 +283,13 @@ TRAIN_OTHERS = [("unet", (256, 512)), ("deeplab", (512, 1024)),
 TRAIN_OTHER_BATCH = 8
 TRAIN_OTHER_STEPS = 6
 TRAIN_TIMED_FROM = 2       # the first steps pick cuDNN algorithms
+DEPLOY_DIR = os.path.join("build", "deploy_smoke")
+DEPLOY_FRAMES = 8          # inputs each artifact runs beside its live program
+DEPLOY_ROUNDS = 3
+TIE_BUDGET = 5e-4          # the JAX package's artifact budget (test_deploy.py)
+SERVE_FRAMES = 200         # torch_inference_video.py --synthetic, ENet
+SERVE_SEG_FRAMES = 60      # the same with --model segformer (1024x1024)
+SERVE_TICKS = 50           # torch_serve_rig.py --synthetic, 4 cameras
 # One f32 ENet step (512x256, batch 2, TF32 off) on the card against the
 # CPU: loss relative, each gradient leaf's max |err| over its max |g| and
 # its relative L2 error, running statistics over max(their leaf's max,
@@ -2355,6 +2383,290 @@ def train_phase(smi: str) -> dict:
     return serve["launches"]
 
 
+def _timed_turns(runs, inputs, rounds: int) -> dict:
+    """ms of each (label, fn) on each input, host clock around work that
+    ends in a device sync, the runs taking turns (reversed every other
+    round); quartiles."""
+    import torch
+
+    samples = {label: [] for label, _ in runs}
+    for r in range(rounds):
+        for x in inputs:
+            for label, fn in (runs if r % 2 == 0 else runs[::-1]):
+                s = time.perf_counter()
+                fn(x)
+                torch.cuda.synchronize()
+                samples[label].append(1e3 * (time.perf_counter() - s))
+    return {label: quartiles(v) for label, v in samples.items()}
+
+
+def _outputs(out) -> list:
+    import torch
+    return [o.cpu() for o in (out if isinstance(out, tuple) else (out,))
+            if isinstance(o, torch.Tensor)]
+
+
+def deploy_case(name: str, export, live, art_input, inputs, per_run: dict,
+                path: str) -> dict:
+    """Export ``name`` to ``path`` (``export(path)``), load it, hold its
+    outputs against ``live`` on every input (bit for bit, or within
+    ``TIE_BUDGET`` of elements with the first differing output named),
+    count its kernel launches a run and time it beside the live program;
+    ``art_input(x)`` is what the artifact takes for the live input x (the
+    host steps run on the host in both)."""
+    import numpy as np
+    import torch
+
+    from bugcar_image_segmentation_tpu_torch import deploy
+    from bugcar_image_segmentation_tpu_torch.ops import cuda as kcuda
+
+    t = time.perf_counter()
+    export(path)
+    export_s = time.perf_counter() - t
+    t = time.perf_counter()
+    dep = deploy.load_artifact(path)
+    load_s = time.perf_counter() - t
+    for x in inputs[:2]:                      # warm both
+        dep(art_input(x))
+        live(x)
+    torch.cuda.synchronize()
+
+    kcuda.reset_launches()
+    got = [_outputs(dep(art_input(x))) for x in inputs]
+    launches = {k: v for k, v in kcuda.LAUNCHES.items() if v}
+    want_launches = {k: v * len(inputs) for k, v in per_run.items()}
+    if launches != want_launches:
+        fail(f"deploy {name}: the artifact launched {launches} over "
+             f"{len(inputs)} runs; expected {want_launches}")
+    differ, first = 0, None
+    total = 0
+    for i, (x, outs) in enumerate(zip(inputs, got)):
+        for j, (a, b) in enumerate(zip(outs, _outputs(live(x)))):
+            if a.shape != b.shape or a.dtype != b.dtype:
+                fail(f"deploy {name}: output {j} is {a.dtype} "
+                     f"{tuple(a.shape)}, live {b.dtype} {tuple(b.shape)}")
+            n = int((a != b).sum())
+            total += a.numel()
+            if n and first is None:
+                first = {"input": i, "output": j, "elements": n}
+            differ += n
+    share = differ / total
+    if share > TIE_BUDGET:
+        fail(f"deploy {name}: {share} of the outputs differ from the live "
+             f"program (first {first}); budget {TIE_BUDGET}")
+    ms = _timed_turns((("live", live), ("artifact",
+                                        lambda x: dep(art_input(x)))),
+                      inputs, DEPLOY_ROUNDS)
+    rec = {"export_s": export_s, "load_s": load_s,
+           "artifact_bytes": os.path.getsize(path),
+           "launches_per_run": {k: v // len(inputs)
+                                for k, v in launches.items()},
+           "bit_equal": differ == 0, "differing_share": share,
+           "first_difference": first, "ms_per_run": ms,
+           "in_avals": dep.meta["in_avals"],
+           "platforms": dep.meta["platforms"]}
+    emit("deploy_case", name=name, **rec)
+    return rec, launches
+
+
+def deploy_phase(smi: str) -> dict:
+    """The ``deploy_path`` phase; returns the kernel launches of its
+    artifact runs."""
+    import numpy as np
+
+    import bugcar_image_segmentation_tpu_torch as port
+    from bugcar_image_segmentation_tpu_torch import deploy, synthetic
+    from bugcar_image_segmentation_tpu_torch.calibration import \
+        toy_calibration
+    from bugcar_image_segmentation_tpu_torch.convert.flax_enet import \
+        random_enet_variables
+    from bugcar_image_segmentation_tpu_torch.convert.flax_segformer import \
+        random_segformer_variables
+    from bugcar_image_segmentation_tpu_torch.convert.flax_xception import \
+        random_xception_variables
+    from bugcar_image_segmentation_tpu_torch.ops import yuv
+
+    t = time.perf_counter()
+    os.makedirs(DEPLOY_DIR, exist_ok=True)
+
+    def video(hw):
+        return [f for f, _, _ in synthetic.video(
+            seed=SEED, num_frames=DEPLOY_FRAMES, shape=hw)]
+
+    grid_cfg = port.GridConfig(8.0, 8.0, 0.1)
+    hw = (256, 512)
+    enet = port.build_engine("enet_fused_w16",
+                             port.ModelConfig(name="enet_fused_w16"),
+                             variables=random_enet_variables(SEED))
+    pipe = port.Pipeline(enet, toy_calibration(hw), grid_cfg,
+                         host_resize=True, transport="i420")
+    rig = port.MultiCameraPipeline(
+        enet, [toy_calibration(hw, yaw=y) for y in RIG_YAWS], grid_cfg)
+    sh, sw = SEGFORMER_HW
+    seg = port.build_engine("segformer_b0", port.ModelConfig(
+        name="segformer_b0", input_width=sw, input_height=sh),
+        variables=random_segformer_variables(SEED))
+    xh, xw = XCEPTION_HW
+    xc = port.build_engine("deeplab_xception_fs", port.ModelConfig(
+        name="deeplab_xception", input_width=xw, input_height=xh),
+        variables=random_xception_variables(SEED))
+    setup_s = time.perf_counter() - t
+
+    def at(name):
+        return os.path.join(DEPLOY_DIR, f"{name}.bcseg")
+
+    camera = video(FRAME_HW)
+    small = video(hw)
+    rig_frames = [np.stack([small[(i + k) % len(small)]
+                            for k in range(len(RIG_YAWS))])
+                  for i in range(len(small))]
+    cases, launches = {}, {}
+    for name, export, live, art_input, inputs, per_run in (
+            ("pipeline_enet_fused_w16_i420",
+             lambda p: deploy.export_pipeline_to(
+                 p, pipe, frame_shape=yuv.i420_shape(hw)),
+             pipe.segment_and_grid, pipe._prep_host, camera,
+             {"fused_bottleneck": 16}),
+            ("segformer_b0_predict",
+             lambda p: deploy.export_engine_to(p, seg, batch=1),
+             lambda x: seg.predict(x[None]), lambda x: x[None],
+             video(SEGFORMER_HW),
+             {"flash_attention": 2, "flash_attention_t": 6}),
+            ("deeplab_xception_fs_predict",
+             lambda p: deploy.export_engine_to(p, xc, batch=1),
+             lambda x: xc.predict(x[None]), lambda x: x[None],
+             video(XCEPTION_HW), {"fused_sepconv": SEP_PER_FRAME}),
+            ("rig_enet_fused_w16",
+             lambda p: deploy.export_multicam_to(p, rig),
+             rig, lambda x: x, rig_frames, {"fused_bottleneck": 16})):
+        cases[name], counts = deploy_case(name, export, live, art_input,
+                                          inputs, per_run, at(name))
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    # on the card the Xception program's trace depends on the batch size
+    try:
+        deploy.export_engine(xc)
+        cases["deeplab_xception_fs_symbolic_batch"] = "exported"
+    except ValueError as e:
+        cases["deeplab_xception_fs_symbolic_batch"] = f"refused: {e}"
+
+    # the pipeline artifact in a process that cannot import the model code
+    np.save(os.path.join(DEPLOY_DIR, "input.npy"), pipe._prep_host(camera[0]))
+    np.save(os.path.join(DEPLOY_DIR, "grid.npy"),
+            pipe(camera[0]).cpu().numpy())
+    code = f"""
+import json, sys
+import numpy as np
+for m in ("models", "convert", "pipeline", "grid"):
+    sys.modules["bugcar_image_segmentation_tpu_torch." + m] = None
+from bugcar_image_segmentation_tpu_torch import deploy
+from bugcar_image_segmentation_tpu_torch.ops import cuda as kcuda
+dep = deploy.load_artifact({at('pipeline_enet_fused_w16_i420')!r})
+grid, _ = dep(np.load({os.path.join(DEPLOY_DIR, 'input.npy')!r}))
+same = bool(np.array_equal(grid.cpu().numpy(),
+                           np.load({os.path.join(DEPLOY_DIR, 'grid.npy')!r})))
+loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
+                and m.startswith("bugcar_image_segmentation_tpu_torch."))
+print(json.dumps({{"same_grid": same, "launches": dict(kcuda.LAUNCHES),
+                  "modules": loaded}}))
+"""
+    s = time.perf_counter()
+    run = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    if run.returncode:
+        fail(f"deploy: the artifact did not load without the model code: "
+             f"{run.stderr[-2000:]}")
+    alone = json.loads(run.stdout.strip().splitlines()[-1])
+    alone["seconds"] = time.perf_counter() - s
+    if not alone["same_grid"] or alone["launches"]["fused_bottleneck"] != 16:
+        fail(f"deploy: the artifact loaded without the model code gave "
+             f"another grid or launch count: {alone}")
+    emit("deploy_path", seconds=round(time.perf_counter() - t, 3),
+         setup_seconds=round(setup_s, 3), frames=DEPLOY_FRAMES,
+         rounds=DEPLOY_ROUNDS, cases=cases, without_model_code=alone,
+         launches=launches, nvidia_smi=smi)
+    return launches
+
+
+def serve_cli_phase(smi: str) -> dict:
+    """The ``serve_cli`` phase: the serving CLIs run in this process;
+    returns their kernel launches."""
+    from bugcar_image_segmentation_tpu_torch.calibration import \
+        toy_calibration
+    from bugcar_image_segmentation_tpu_torch.ops import cuda as kcuda
+
+    t = time.perf_counter()
+    root = os.path.join("build", "serve_smoke")
+    os.makedirs(root, exist_ok=True)
+
+    def calib(name, hw, yaw=0.05):
+        path = os.path.join(root, f"{name}.json")
+        toy_calibration(hw, yaw=yaw).save_json(path)
+        return path
+
+    cal_enet = calib("enet", (256, 512))
+    cal_seg = calib("segformer", SEGFORMER_HW)
+    rig_cals = [calib(f"rig{k}", (256, 512), y)
+                for k, y in enumerate(RIG_YAWS)]
+    records, launches = {}, {}
+
+    def counted(label, fn):
+        kcuda.reset_launches()
+        s = time.perf_counter()
+        rec = fn()
+        rec["wall_s"] = time.perf_counter() - s
+        rec["launches"] = {k: v for k, v in kcuda.LAUNCHES.items() if v}
+        for k, v in rec["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        records[label] = rec
+        return rec
+
+    video = load_script("torch_inference_video")
+    for model, n in (("enet", SERVE_FRAMES), ("segformer", SERVE_SEG_FRAMES)):
+        rec = counted(f"inference_video_{model}", lambda: video.run(
+            video.parse_args(["--synthetic", str(n), "--calib",
+                              cal_enet if model == "enet" else cal_seg,
+                              "--model", model])))
+        if rec["frames"] != n or rec["dropped"]:
+            fail(f"torch_inference_video.py --model {model}: {rec['frames']}"
+                 f"/{n} frames, {rec['dropped']} dropped")
+        # the warm-up frame and n frames, SegFormer's 2 + 6 attention
+        # launches each
+        want = ({} if model == "enet" else
+                {"flash_attention": 2 * (n + 1),
+                 "flash_attention_t": 6 * (n + 1)})
+        if rec["launches"] != want:
+            fail(f"torch_inference_video.py --model {model} launched "
+                 f"{rec['launches']}; expected {want}")
+
+    rig = load_script("torch_serve_rig")
+    rec = counted("serve_rig_enet_fused_w16", lambda: rig.run(rig.parse_args(
+        ["--calibs", *rig_cals, "--synthetic", str(SERVE_TICKS),
+         "--model", "enet_fused_w16"])))
+    want = {"fused_bottleneck": 16 * (SERVE_TICKS + 1)}   # + the warm-up
+    if rec["ticks"] != SERVE_TICKS or rec["launches"] != want:
+        fail(f"torch_serve_rig.py: {rec['ticks']} ticks, launches "
+             f"{rec['launches']}; expected {SERVE_TICKS}, {want}")
+
+    export = load_script("torch_export_model")
+    out = os.path.join(root, "enet_fused.bcseg")
+    with contextlib.redirect_stdout(sys.stderr):
+        rec = counted("export_model", lambda: {"meta": export.run(
+            export.parse_args(["--model", "enet_fused", "--out", out]))})
+        smoke = counted("export_model_load_smoke", lambda: {
+            "meta": export.run(export.parse_args(["--load", out,
+                                                  "--smoke"]))})
+    if (rec["launches"] or smoke["launches"] != {"fused_bottleneck": 16}
+            or smoke["meta"]["platforms"] != ["cuda"]):
+        fail(f"torch_export_model.py: export launched {rec['launches']}, "
+             f"--load --smoke {smoke['launches']} on "
+             f"{smoke['meta']['platforms']}")
+    emit("serve_cli", seconds=round(time.perf_counter() - t, 3),
+         records=records, launches=launches, nvidia_smi=smi)
+    return launches
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(DEADLINE_S, exit=True)
     import torch
@@ -2426,6 +2738,12 @@ def main() -> int:
     enet_entry["launches"] += fusion_phase(smi)["fused_bottleneck"]
     # the trained weights are served through the bottleneck kernel
     enet_entry["launches"] += train_phase(smi)["fused_bottleneck"]
+    # the artifacts and the serving CLIs run rows 1-4
+    for launches in (deploy_phase(smi), serve_cli_phase(smi)):
+        enet_entry["launches"] += launches.get("fused_bottleneck", 0)
+        for name in ("flash_attention", "flash_attention_t"):
+            seg_launches[name] += launches.get(name, 0)
+        xc_launches["fused_sepconv"] += launches.get("fused_sepconv", 0)
 
     # -- result --------------------------------------------------------------
     kernels = ([enet_entry] + [attention_entry(n, att, seg_launches)

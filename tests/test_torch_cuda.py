@@ -6,9 +6,12 @@ frame's result alone equals its result in a batch, every engine family),
 the camera rig, bench.py's path (``enet_w16``, host resize, i420) on
 the card, the int8 product (``torch._int_mm``, exact against the int32
 plain version, small M padded), the torch backend of the temporal
-fusion on the card, and training: bf16 ENet and SegFormer steps (the
+fusion on the card, training: bf16 ENet and SegFormer steps (the
 latter through the plain attention), one f32 ENet step against the same
-step on the CPU, and the data-parallel step on one NCCL rank.
+step on the CPU, and the data-parallel step on one NCCL rank; and the
+serving kernels as ``torch.library`` ops (each op's CUDA implementation
+against its plain version, an exported artifact's launches counted, a
+failed build raising with no fallback).
 
 Needs an NVIDIA card (Hopper, sm_90a) and nvcc; every test here skips
 without a card.  This file imports neither JAX nor the JAX package, so it
@@ -1012,3 +1015,104 @@ def test_dp_step_on_one_nccl_rank_equals_plain(dev):
     assert torch.equal(out[0][0], out[1][0])
     for k, v in out[0][1].items():
         assert torch.equal(v, out[1][1][k]), k
+
+
+# -- the serving kernels as torch.library ops, and deploy artifacts ----------
+
+def _op_case(name, dtype, dev):
+    """(op, its arguments on the card, the plain version's output, its
+    tolerance): the inputs of this file's kernel-vs-plain tests."""
+    from bugcar_image_segmentation_tpu_torch.ops.cuda import (attention,
+                                                              bottleneck,
+                                                              sepconv)
+    if name.startswith("fused_bottleneck"):
+        kind = name.split("-")[1]
+        dil = 1
+        a = _args(kind, KINDS.index((kind, dil)), dev)
+        x = torch.as_tensor(np.random.default_rng(1).standard_normal(
+            (1, 32, 64, 128)).astype(np.float32), device=dev).to(dtype)
+        packed = bottleneck.pack_weights(a[0], a[4], a[8], kind=kind)
+        args = (x, *a[:4], bottleneck.kernel_core(a[4], kind), *a[5:],
+                packed, kind, dil)
+        want = bottleneck.fused_bottleneck_ref(x, *a, kind=kind,
+                                               dilation=dil)
+        return (torch.ops.bugcar.fused_bottleneck.default, args, want,
+                TOL[dtype])
+    if name.startswith("flash_attention"):
+        q, k, v = _qkv((2, 3, 1000, 77, 64), dtype, dev)
+        if name == "flash_attention_t":
+            q, k, v = (t.transpose(-1, -2).contiguous() for t in (q, k, v))
+            want = attention.attention_reference_t(q, k, v)
+        else:
+            want = attention.attention_reference(q, k, v)
+        return (getattr(torch.ops.bugcar, name).default, (q, k, v), want,
+                ATTN_TOL[dtype])
+    shape = (2, 32, 64, 728, 728, 1, True)
+    x, a = _sep_args(shape, dtype, dev)
+    a[3] = a[3].to(dtype)        # the wrapper rounds wpw before the op
+    want = sepconv.sepconv_reference(x, *a, strides=1, act_out=True)
+    return (torch.ops.bugcar.fused_sepconv.default, (x, *a, 1, True), want,
+            TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", ["fused_bottleneck-regular",
+                                  "fused_bottleneck-asymmetric",
+                                  "flash_attention", "flash_attention_t",
+                                  "fused_sepconv"])
+def test_library_op_cuda_matches_plain(dev, name, dtype):
+    """Each op's CUDA implementation launches the kernel (counted in
+    LAUNCHES inside the op) and agrees with the plain version."""
+    op, args, want, (atol, rtol) = _op_case(name, dtype, dev)
+    key = name.split("-")[0]
+    before = kcuda.LAUNCHES[key]
+    got = op(*args)
+    torch.cuda.synchronize()
+    assert kcuda.LAUNCHES[key] == before + 1
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert got.is_contiguous()
+    diff = (got.float() - want.float()).abs()
+    assert bool((diff <= atol + rtol * want.float().abs()).all()), \
+        float(diff.max())
+
+
+def test_artifact_launches_counted_on_card(dev, tmp_path):
+    """An exported enet_fused engine, saved and loaded, launches the
+    bottleneck kernel 16 times a forward, read from LAUNCHES, and gives
+    the live engine's labels bit for bit."""
+    import bugcar_image_segmentation_tpu_torch as port
+    from bugcar_image_segmentation_tpu_torch import deploy
+    eng = port.build_engine("enet_fused", port.ModelConfig(
+        input_width=128, input_height=64))
+    path = str(tmp_path / "enet.bcseg")
+    deploy.export_engine_to(path, eng)
+    dep = deploy.load_artifact(path)
+    assert dep.meta["platforms"] == ["cuda"]
+    x = np.random.default_rng(0).integers(0, 255, (3, 64, 128, 3),
+                                          dtype=np.uint8)
+    kcuda.reset_launches()
+    got = dep(x)
+    assert kcuda.LAUNCHES["fused_bottleneck"] == 16
+    assert got.is_cuda and torch.equal(got, eng.predict(x))
+    assert kcuda.LAUNCHES["fused_bottleneck"] == 32
+
+
+@pytest.mark.parametrize("name", ["fused_bottleneck-regular",
+                                  "flash_attention", "fused_sepconv"])
+def test_failed_build_raises_without_fallback(dev, name, monkeypatch):
+    """A build that fails raises from the op on CUDA tensors: nothing
+    falls back to the plain version and nothing is counted."""
+    from bugcar_image_segmentation_tpu_torch.ops.cuda import build as kbuild
+
+    def broken():
+        raise RuntimeError("nvcc failed (a broken build, on purpose)")
+
+    monkeypatch.setattr(kbuild, "_lib", None)
+    monkeypatch.setattr(kbuild, "build", broken)
+    op, args, _, _ = _op_case(name, torch.bfloat16, dev)
+    key = name.split("-")[0]
+    before = kcuda.LAUNCHES[key]
+    with pytest.raises(RuntimeError, match="broken build"):
+        op(*args)
+    assert kcuda.LAUNCHES[key] == before

@@ -51,7 +51,9 @@ SLICE_MODULES = ("ops.cuda.attention", "models.segformer",
                  "models.unet", "convert.flax_tree", "convert.flax_deeplab",
                  "convert.flax_unet", "ops.polar", "postproc", "ops.quant",
                  "fusion", "fov", "msg", "evaluation", "training.optim",
-                 "training.trainer", "training.augment", "parallel.mesh")
+                 "training.trainer", "training.augment", "parallel.mesh",
+                 "io.ring", "io.sources", "io.health", "ops.cuda.library",
+                 "deploy", "utils.profiling")
 GRID = (4.0, 4.0, 0.2)
 MODEL = dict(input_width=64, input_height=32, dtype="float32")
 
@@ -245,8 +247,14 @@ ROS_EDGE = {"rospy", "nav_msgs", "geometry_msgs", "std_msgs"}
 # scripts/torch_train.py reads PNG/JPEG pairs through cv2 where cv2 is
 # installed: imported only inside read_pair for a file that is not .npy
 # (the poisoned import below loads the script too)
+# io/sources.py's OpenCVSource, utils.probe_cameras and
+# torch_inference_video.py's --display import cv2 inside the function that
+# needs it, as the JAX package does (the card host has no cv2)
 EDGES = {PORT / "msg.py": ROS_EDGE,
-         REPO / "scripts" / "torch_train.py": {"cv2"}}
+         REPO / "scripts" / "torch_train.py": {"cv2"},
+         PORT / "io" / "sources.py": {"cv2"},
+         PORT / "utils" / "__init__.py": {"cv2"},
+         REPO / "scripts" / "torch_inference_video.py": {"cv2"}}
 
 
 def test_port_and_smoke_import_only_what_the_gpu_host_has():
