@@ -37,8 +37,10 @@ Layer map:
               train-state checkpoints
   training/   the loss, AdamW as optax computes it, the train and eval
               steps (train-mode BatchNorm, ENet's dropout), augmentation
-  parallel/   the data-parallel train step's process group
-              (torch.distributed: gloo on the CPU, NCCL on the card)
+  parallel/   meshes of named axes on torch.distributed (gloo on the
+              CPU, NCCL on the card): data-parallel, dp x tp and dp x sp
+              training, the camera-sharded rig, tensor-parallel and
+              spatially partitioned serving
   grid        segmap → occupancy grid (ops/polar.py: laserscan)
   postproc    CLAHE and the contour filter
   pipeline    frame → grid, batched and streaming; the camera rig

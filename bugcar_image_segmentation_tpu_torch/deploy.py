@@ -38,8 +38,16 @@ The contract is the JAX package's:
   stitched grid.
 - **The device is the export's.**  The header's ``platforms`` names it
   (``["cuda"]`` or ``["cpu"]``) and :class:`Deployed` moves its inputs
-  there; ``nr_devices`` is 1 (spatially partitioned artifacts and
-  ``call_sharded`` wait for ``parallel/spatial.py``).
+  there.
+- **A spatially partitioned engine exports for its mesh.**  An engine
+  served with a frame's rows over ranks (``parallel/spatial.py``)
+  exports a program whose header records ``nr_devices``, the ranks of its
+  axis (1 for every other artifact).  Each rank calls the same loaded
+  program on the whole input and gets the whole output
+  (:meth:`Deployed.call_sharded`): the rank's coordinate is an input of
+  the program, so that the artifact exported on one rank serves every
+  rank, and the collectives run over the loading process's default group,
+  which the exporting mesh's axis must have been too.
 
 The container is ``magic | u32 header length | JSON header | blob``, the
 blob being ``torch.export.save``'s bytes; the magic is the port's own, and
@@ -56,6 +64,7 @@ from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .ops import cuda as _cuda  # noqa: F401  (registers the bugcar:: ops)
 
@@ -80,15 +89,34 @@ class _Frozen(torch.nn.Module):
         return self.fn(x)
 
 
+class _FrozenSharded(_Frozen):
+    """The same for a spatially partitioned engine: the rank's coordinate
+    on the axis (``rows``, a ``parallel/halo.RowShards``) is an input."""
+
+    def __init__(self, fn: Callable, module: torch.nn.Module, rows):
+        super().__init__(fn, module)
+        self.rows = rows
+
+    def forward(self, x: torch.Tensor, index: torch.Tensor):
+        with self.rows.at(index):
+            return self.fn(x)
+
+
 def _trace(fn: Callable, module, example: torch.Tensor,
-           batch_dim: bool) -> torch.export.ExportedProgram:
-    dynamic = ({"x": {0: torch.export.Dim("batch", min=1, max=MAX_BATCH)}}
-               if batch_dim else None)
+           batch_dim: bool, rows=None) -> torch.export.ExportedProgram:
+    batch = {0: torch.export.Dim("batch", min=1, max=MAX_BATCH)}
+    if rows is None:
+        frozen, args = _Frozen(fn, module), (example,)
+        dynamic = {"x": batch} if batch_dim else None
+    else:
+        frozen = _FrozenSharded(fn, module, rows)
+        args = (example, torch.zeros((), dtype=torch.int64,
+                                     device=example.device))
+        dynamic = {"x": batch, "index": None} if batch_dim else None
     # under no_grad the models' own no_grad scopes trace to nothing (a
     # grad-mode node would not survive torch.export.save)
     with torch.no_grad():
-        return torch.export.export(_Frozen(fn, module), (example,),
-                                   dynamic_shapes=dynamic)
+        return torch.export.export(frozen, args, dynamic_shapes=dynamic)
 
 
 def export_engine(engine: Any, fn: str = "predict",
@@ -114,6 +142,13 @@ def export_engine(engine: Any, fn: str = "predict",
             f"size, so pass batch=<int>")
     if batch is not None and int(batch) < 1:
         raise ValueError(f"batch must be >= 1, got {batch}")
+    rows = getattr(engine, "spatial", None)
+    if rows is not None and rows.group is not dist.group.WORLD:
+        raise ValueError(
+            f"engine {engine.name!r} splits its rows over a mesh axis of "
+            f"{rows.size} of the {dist.get_world_size()} ranks; a sharded "
+            f"artifact runs over the default group, so export it from a "
+            f"mesh whose spatial axis holds every rank")
     snap = copy.deepcopy(engine)
     endpoint = {"predict": snap.segment,
                 "predict_binary": lambda f: snap.segment(f, "binary"),
@@ -124,7 +159,8 @@ def export_engine(engine: Any, fn: str = "predict",
     example = torch.zeros((n, cfg.input_height, cfg.input_width, 3),
                           dtype=torch.uint8, device=snap.device)
     try:
-        return _trace(endpoint, snap.forward_fn, example, batch is None)
+        return _trace(endpoint, snap.forward_fn, example, batch is None,
+                      rows)
     except torch._dynamo.exc.UserError as e:
         if batch is not None:
             raise
@@ -134,6 +170,13 @@ def export_engine(engine: Any, fn: str = "predict",
             f"engine {engine.name!r} does not export with a symbolic batch "
             f"on {snap.device.type}: its program depends on the batch size "
             f"there ({guard}); pass batch=<int>") from e
+
+
+def _unsharded(engine: Any) -> None:
+    if getattr(engine, "spatial", None) is not None:
+        raise ValueError(
+            f"engine {engine.name!r} is spatially partitioned; a sharded "
+            f"artifact is an engine endpoint (export_engine)")
 
 
 def export_pipeline(pipeline: Any,
@@ -149,6 +192,7 @@ def export_pipeline(pipeline: Any,
         (``ops/yuv.i420_shape``); for the device-side resize, the capture
         shape.
     """
+    _unsharded(pipeline.engine)
     if frame_shape is None:
         if pipeline.transport != "bgr":
             raise ValueError(
@@ -170,6 +214,7 @@ def export_pipeline(pipeline: Any,
 def export_multicam(pipeline: Any) -> torch.export.ExportedProgram:
     """Freeze a :class:`~.pipeline.MultiCameraPipeline`: (N_cam, H, W, 3)
     uint8 BGR → the stitched int8 vehicle grid (BASELINE config 4)."""
+    _unsharded(pipeline.engine)
     snap = copy.deepcopy(pipeline)
     cfg = snap.engine.cfg
     example = torch.zeros((len(snap.builders), cfg.input_height,
@@ -200,15 +245,15 @@ def save_artifact(path: str, exported: torch.export.ExportedProgram,
 
     The header carries ``meta``, the program's input and output shapes
     (``in_avals``, ``out_avals``), ``platforms`` (the device it was
-    exported on) and ``nr_devices`` (1), readable without loading the
-    program."""
+    exported on) and ``nr_devices`` (``meta``'s, else 1), readable without
+    loading the program."""
     nodes = {n.name: n for n in exported.graph.nodes}
     sig = exported.graph_signature
     header = dict(meta or {})
     header["in_avals"] = [_aval(nodes[name]) for name in sig.user_inputs]
     header["out_avals"] = [_aval(nodes[name]) for name in sig.user_outputs]
     header["platforms"] = [_platform(exported)]
-    header["nr_devices"] = 1
+    header["nr_devices"] = int(header.get("nr_devices", 1))
     buf = io.BytesIO()
     torch.export.save(exported, buf)
     hdr = json.dumps(header).encode("utf-8")
@@ -235,7 +280,28 @@ class Deployed:
 
     @torch.no_grad()
     def __call__(self, *args):
+        if self.nr_devices > 1:
+            raise ValueError(
+                f"this artifact was exported for {self.nr_devices} devices; "
+                f"run it with call_sharded(mesh, ...) on every rank")
         return self._module(*(_tensor(a).to(self.device) for a in args))
+
+    @torch.no_grad()
+    def call_sharded(self, mesh, *args):
+        """Run the artifact on this rank of ``mesh`` (``parallel.Mesh``),
+        which must hold exactly :attr:`nr_devices` ranks; its axis names
+        do not matter.  Every rank passes the whole input and gets the
+        whole output."""
+        if mesh.world_size != self.nr_devices:
+            raise ValueError(
+                f"artifact was exported for {self.nr_devices} devices, "
+                f"mesh has {mesh.world_size}")
+        if self.nr_devices == 1:
+            return self._module(*(_tensor(a).to(self.device) for a in args))
+        index = torch.tensor(mesh.rank, dtype=torch.int64,
+                             device=self.device)
+        return self._module(*(_tensor(a).to(self.device) for a in args),
+                            index)
 
     def predict(self, frames_bgr) -> torch.Tensor:
         """Engine.predict-shaped convenience: (H, W, 3) or (B, H, W, 3)
@@ -247,7 +313,8 @@ class Deployed:
 
     @property
     def nr_devices(self) -> int:
-        """Devices the program was exported for (1: one card)."""
+        """Devices the program was exported for (1: one card; more: the
+        ranks of a spatially partitioned engine's axis)."""
         return int(self.meta["nr_devices"])
 
 
@@ -296,6 +363,8 @@ def export_engine_to(path: str, engine: Any, fn: str = "predict",
               "engine": engine.name,
               "input_hw": [engine.cfg.input_height, engine.cfg.input_width],
               "num_classes": engine.cfg.num_classes}
+    if getattr(engine, "spatial", None) is not None:
+        header["nr_devices"] = engine.spatial.size
     header.update(meta or {})
     save_artifact(path, exported, header)
 

@@ -156,7 +156,17 @@ class Engine:
     the whole batch in one call.
 
     ``int8`` and ``cascade``: the name's ``_int8`` and ``_hc`` flags.
+
+    ``placer`` (None, or set by ``parallel/tp.py`` / ``parallel/spatial.py``)
+    places the weights on a mesh; :meth:`load_variables` applies it to the
+    new weights.  ``spatial`` (a ``parallel/halo.RowShards``, set by
+    ``parallel/spatial.py``): each frame's rows are split over ranks; the
+    backbone runs on this rank's rows, and :meth:`forward` and
+    :meth:`segment_head` return the whole frame's, gathered.
     """
+
+    placer: Optional[Callable] = None
+    spatial = None
 
     def __init__(self, name: str, cfg: ModelConfig,
                  variables: Optional[Mapping] = None,
@@ -202,7 +212,13 @@ class Engine:
 
     def load_variables(self, variables: Optional[Mapping]) -> None:
         """Swap in weights: a Flax-layout tree, a port state dict, or None
-        (random from the engine's seed); ``_w16`` rounds them to bf16."""
+        (random from the engine's seed); ``_w16`` rounds them to bf16;
+        the engine's ``placer`` places them."""
+        self._load(variables)
+        if self.placer is not None:
+            self.placer(self)
+
+    def _load(self, variables: Optional[Mapping]) -> None:
         quarter = "quarter" if self.label_scale == 4 else "full"
         if self.family == "segformer":
             self._load_module(
@@ -290,11 +306,22 @@ class Engine:
         (:attr:`frame_by_frame`).  Preprocessing,
         argmax, remap and grid stay batched (they are elementwise or
         gather per frame)."""
+        return self._whole(self._shard_logits(frames))
+
+    def _shard_logits(self, frames: torch.Tensor) -> torch.Tensor:
+        """The backbone's logits; under :attr:`spatial`, of this rank's
+        rows of the preprocessed frames."""
         x = pre.preprocess_for_config(frames, self.cfg)
+        if self.spatial is not None:
+            x = self.spatial.take(x, 1)
         if not self.frame_by_frame or x.shape[0] == 1:
             return self.forward_fn(x)
         return torch.cat([self.forward_fn(x[i:i + 1])
                           for i in range(x.shape[0])])
+
+    def _whole(self, y: torch.Tensor) -> torch.Tensor:
+        """Every rank's rows of ``y`` under :attr:`spatial`, else ``y``."""
+        return y if self.spatial is None else self.spatial.gather(y, 1)
 
     @torch.no_grad()
     def segment_head(self, frames: torch.Tensor, mode: str = "multiclass"
@@ -302,12 +329,14 @@ class Engine:
         """(N, H, W, 3) uint8 on the device → (N, h, w) uint8 class maps
         (3-class drivability, or the binary road mask) at the head's
         resolution, 1/label_scale of the input's."""
-        logits = self.forward(frames)
+        if mode not in ("multiclass", "binary"):
+            raise ValueError(f"unknown mode {mode!r}")
+        logits = self._shard_logits(frames)
         if mode == "multiclass":
-            return remap.logits_to_drivability(logits, self.remap_table)
-        if mode == "binary":
-            return remap.logits_to_binary_road(logits)
-        raise ValueError(f"unknown mode {mode!r}")
+            labels = remap.logits_to_drivability(logits, self.remap_table)
+        else:
+            labels = remap.logits_to_binary_road(logits)
+        return self._whole(labels)
 
     def to_input_res(self, labels: torch.Tensor) -> torch.Tensor:
         """Nearest-lift a head-resolution label map to the input

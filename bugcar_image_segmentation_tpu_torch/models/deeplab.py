@@ -63,7 +63,10 @@ class ConvBN(nn.Module):
 
 class ASPP(nn.Module):
     """Atrous spatial pyramid pooling: 1x1 + three dilated 3x3 + image
-    pool, concatenated and merged by a 1x1 ConvBN."""
+    pool, concatenated and merged by a 1x1 ConvBN.  With ``rows`` (a
+    shard of a frame's rows), the image pool sums the shards' rows."""
+
+    rows = None
 
     def __init__(self, cin: int, features: int = 256,
                  rates: Sequence[int] = (6, 12, 18), relu6: bool = False):
@@ -81,7 +84,13 @@ class ASPP(nn.Module):
         branches = [getattr(self, f"b{i}")(x)
                     for i in range(self.num_rates + 1)]
         # the mean sums in f32, as jnp.mean does for bf16
-        pooled = x.float().mean(dim=(1, 2), keepdim=True).to(x.dtype)
+        if self.rows is None:
+            pooled = x.float().mean(dim=(1, 2), keepdim=True)
+        else:
+            pooled = self.rows.sum(x.float().sum(dim=(1, 2), keepdim=True)
+                                   ) / (self.rows.size * x.shape[1]
+                                        * x.shape[2])
+        pooled = pooled.to(x.dtype)
         pooled = self.image_pool(pooled)
         branches.append(pooled.expand(-1, x.shape[1], x.shape[2], -1))
         return self.merge(torch.cat(branches, dim=-1))
@@ -134,9 +143,11 @@ class DeepLabV3(nn.Module):
     W/4, classes) with ``head_upsample="quarter"`` in eval mode.  Train
     mode (``train()``) takes BatchNorm statistics from the batch and always
     upsamples the logits to the input, as the Flax module does;
-    :attr:`compute_dtype` computes in that dtype from f32 weights."""
+    :attr:`compute_dtype` computes in that dtype from f32 weights.
+    ``rows``: a shard of a frame's rows (``parallel/spatial.py``)."""
 
     compute_dtype: Optional[torch.dtype] = None
+    rows = None
 
     def __init__(self, num_classes: int = 15, head_upsample: str = "full"):
         super().__init__()
@@ -183,19 +194,21 @@ class DeepLabV3(nn.Module):
             if name == LOW_LEVEL:
                 low_level = y
         y = self.aspp(y)
-        y = _upsample(y, (low_level.shape[1], low_level.shape[2]))
+        y = _upsample(y, (low_level.shape[1], low_level.shape[2]),
+                      self.rows)
         ll = self.low_proj(low_level)
         y = torch.cat([y, ll.to(y.dtype)], dim=-1)
         y = self.classifier(self.dec1(self.dec0(y))).float()
         if self.head_upsample == "quarter" and not self.training:
             return y
-        return _upsample(y, (x.shape[1], x.shape[2]))
+        return _upsample(y, (x.shape[1], x.shape[2]), self.rows)
 
 
-def _upsample(x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
+def _upsample(x: torch.Tensor, hw: Tuple[int, int], rows=None
+              ) -> torch.Tensor:
     """Bilinear upsample of NHWC ``x`` to (h, w), as ``jax.image.resize``
-    computes it in ``x``'s dtype."""
-    return upsample_bilinear(x, hw, axes=(1, 2))
+    computes it in ``x``'s dtype (``rows``: of one shard's rows)."""
+    return upsample_bilinear(x, hw, axes=(1, 2), rows=rows)
 
 
 __all__ = ["ConvBN", "ASPP", "InvertedResidual", "DeepLabV3", "MNV2_BLOCKS",

@@ -48,7 +48,10 @@ DROPOUT_STAGE1, DROPOUT = 0.01, 0.1
 
 
 class Conv(nn.Module):
-    """``nn.Conv`` with Flax SAME padding (``kernel`` ↔ ``weight``)."""
+    """``nn.Conv`` with Flax SAME padding (``kernel`` ↔ ``weight``);
+    ``rows`` as :class:`~.layers.Conv`'s."""
+
+    rows = None
 
     def __init__(self, cin: int, cout: int, kernel: Tuple[int, int] = (3, 3),
                  stride: int = 1, dilation: int = 1, bias: bool = False):
@@ -63,6 +66,10 @@ class Conv(nn.Module):
                        self.dilation),
             _same_pads(x.shape[3], self.kernel[1], self.stride,
                        self.dilation))
+        if self.rows is not None:
+            x = self.rows.conv_rows(x, 2, self.kernel[0], self.stride,
+                                    self.dilation, th)
+            th = bh = 0
         if (th, tw) == (bh, bw):
             pad = (th, tw)
         else:
@@ -79,7 +86,10 @@ class ConvTranspose(nn.Module):
     Flax runs it as a stride-1 conv of the unflipped kernel over the
     2x-dilated input padded (2, 1); that is ``conv_transpose2d`` with the
     kernel flipped (the stored layout) and the last row and column of its
-    (2H+1, 2W+1) output dropped."""
+    (2H+1, 2W+1) output dropped.  With ``rows`` (a shard of a frame's
+    rows), the row above the shard feeds its first two output rows."""
+
+    rows = None
 
     def __init__(self, cin: int, cout: int, bias: bool = False):
         super().__init__()
@@ -88,9 +98,12 @@ class ConvTranspose(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h, w = x.shape[2], x.shape[3]
+        top = 0
+        if self.rows is not None:
+            x, top = self.rows.halo(x, 2, 1, 0), 2
         y = F.conv_transpose2d(x, _cast(self.weight, x), _cast(self.bias, x),
                                stride=2)
-        return y[:, :, :2 * h, :2 * w]
+        return y[:, :, top:top + 2 * h, :2 * w]
 
 
 class BatchNorm(layers.BatchNorm):

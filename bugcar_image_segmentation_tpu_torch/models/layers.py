@@ -37,7 +37,13 @@ def _cast(t: Optional[torch.Tensor], like: torch.Tensor
 class Conv(nn.Module):
     """``nn.Conv`` on NHWC tensors, with Flax SAME padding or the official
     implementation's centred ``k // 2`` ("torch"), stride, dilation and
-    groups."""
+    groups.
+
+    ``rows`` (``parallel/halo.RowShards``, set by spatial partitioning):
+    the input is one shard of a frame's rows, and the rows the window
+    reads across the shard's edges come from the other ranks."""
+
+    rows = None
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
                  groups: int = 1, bias: bool = True, pad: str = "same",
@@ -60,6 +66,9 @@ class Conv(nn.Module):
         else:
             (th, bh), (tw, bw) = (_same_pads(h, k, s, d),
                                   _same_pads(w, k, s, d))
+        if self.rows is not None:
+            x = self.rows.conv_rows(x, 1, k, s, d, th)
+            h, th, bh = x.shape[1], 0, 0
         if (th, tw) == (bh, bw):
             pad = (th, tw)
         else:   # pad in NHWC, so that the conv still reads NHWC memory

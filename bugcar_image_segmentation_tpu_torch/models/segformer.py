@@ -171,7 +171,12 @@ class OverlapPatchEmbed(nn.Module):
 
 
 class EfficientAttention(nn.Module):
-    """Self-attention with spatial reduction of K/V (SegFormer's SRA)."""
+    """Self-attention with spatial reduction of K/V (SegFormer's SRA).
+    With ``rows`` (a shard of a frame's rows) the queries stay the
+    shard's and the reduced K/V tokens are gathered from every shard, in
+    row order."""
+
+    rows = None
 
     def __init__(self, dim: int, num_heads: int, sr_ratio: int = 1,
                  quant: bool = False):
@@ -195,6 +200,8 @@ class EfficientAttention(nn.Module):
         if self.sr_ratio > 1:
             kv_in = self.sr(x.reshape(n, h, w, c)).reshape(n, -1, c)
             kv_in = self.sr_norm(kv_in)
+        if self.rows is not None:
+            kv_in = self.rows.gather(kv_in, 1)
         lkv = kv_in.shape[1]
         if heads == 1:
             attend = attention_reference if xla_attention else flash_attention
@@ -265,9 +272,12 @@ class SegFormer(nn.Module):
     textbook head at full resolution (no folded head, no quarter head),
     ``fuse_bn`` from batch statistics (momentum 0.9);
     :attr:`compute_dtype` computes in that dtype from f32 weights.
+    ``rows``: a shard of a frame's rows (``parallel/spatial.py``), for
+    the head's resizes.
     """
 
     compute_dtype: Optional[torch.dtype] = None
+    rows = None
 
     def __init__(self, num_classes: int = 15,
                  widths: Sequence[int] = (32, 64, 160, 256),
@@ -389,7 +399,8 @@ class SegFormer(nn.Module):
         for s, f in enumerate(feats):
             p = getattr(self, f"linear_c{s}")(f)
             if tuple(p.shape[1:3]) != target:
-                p = upsample_bilinear(p, target, axes=(1, 2))
+                p = upsample_bilinear(p, target, axes=(1, 2),
+                                      rows=self.rows)
             proj.append(p)
         return self._classify(self.fuse(torch.cat(proj[::-1], dim=-1)),
                               out_hw)
@@ -400,7 +411,7 @@ class SegFormer(nn.Module):
         y = self.classifier(y).float()
         if self.head_upsample == "quarter" and not self.training:
             return y
-        return upsample_bilinear(y, out_hw, axes=(1, 2))
+        return upsample_bilinear(y, out_hw, axes=(1, 2), rows=self.rows)
 
     def folded(self, dtype: torch.dtype) -> List[Dense]:
         """Stage s's ``linear_c`` with its slice of the bias-free fuse
@@ -436,12 +447,13 @@ class SegFormer(nn.Module):
             y = parts[3]
             for p in parts[2::-1]:
                 y = p + upsample_bilinear(y, tuple(p.shape[1:3]),
-                                          axes=(1, 2))
+                                          axes=(1, 2), rows=self.rows)
         else:
             target = tuple(parts[0].shape[1:3])
             y = parts[0]
             for p in parts[1:]:
-                y = y + upsample_bilinear(p, target, axes=(1, 2))
+                y = y + upsample_bilinear(p, target, axes=(1, 2),
+                                          rows=self.rows)
         return self._classify(y, out_hw)
 
     def check_input(self, x: torch.Tensor) -> None:

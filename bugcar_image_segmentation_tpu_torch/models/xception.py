@@ -165,8 +165,11 @@ class Xception65DeepLab(nn.Module):
     False, True / "all" (entry and middle flows), "entry", "middle" or
     "block1" / "block2" / "block3", as the JAX model's.  ``pw_int8``: the
     int8 pointwise (module docstring); the JAX model's ``dw_shift``
-    lowering is not ported.
+    lowering is not ported.  ``rows``: a shard of a frame's rows
+    (``parallel/spatial.py``).
     """
+
+    rows = None
 
     def __init__(self, num_classes: int = 15, middle_blocks: int = 16,
                  head_upsample: str = "full",
@@ -275,13 +278,14 @@ class Xception65DeepLab(nn.Module):
     def decode(self, y: torch.Tensor, low_level: torch.Tensor,
                out_hw: Tuple[int, int]) -> torch.Tensor:
         """ASPP output and block 2's tap → f32 logits (decoder and head)."""
-        y = _upsample(y, (low_level.shape[1], low_level.shape[2]))
+        y = _upsample(y, (low_level.shape[1], low_level.shape[2]),
+                      self.rows)
         ll = self.low_proj(low_level)
         y = torch.cat([y, ll.to(y.dtype)], dim=-1)
         y = self.classifier(self.dec1(self.dec0(y))).float()
         if self.head_upsample == "quarter":
             return y
-        return _upsample(y, out_hw)
+        return _upsample(y, out_hw, self.rows)
 
     def check_input(self, x: torch.Tensor) -> None:
         if x.dim() != 4 or x.shape[1] % 16 or x.shape[2] % 16:

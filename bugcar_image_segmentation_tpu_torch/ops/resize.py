@@ -81,7 +81,8 @@ def resize_bilinear(img: torch.Tensor, dst_hw: Tuple[int, int]
 
 
 def upsample_bilinear(x: torch.Tensor, dst_hw: Tuple[int, int],
-                      axes: Tuple[int, int] = (-2, -1)) -> torch.Tensor:
+                      axes: Tuple[int, int] = (-2, -1),
+                      rows=None) -> torch.Tensor:
     """``jax.image.resize(..., method="bilinear")`` of the ``axes`` (H, W)
     to a size no smaller, value for value.
 
@@ -92,17 +93,25 @@ def upsample_bilinear(x: torch.Tensor, dst_hw: Tuple[int, int],
     of fewer multiplications, H first on a tie), so the result is rounded
     to ``x.dtype`` after each axis in that order; in float32 that is
     ``resize_bilinear`` up to the last bit.
+
+    ``rows`` (``parallel/halo.RowShards``): ``x`` and the (H, W) asked
+    for are one shard's rows of a frame split over ranks; the rows are
+    resized as the whole frame's would be, in the whole frame's axis
+    order.
     """
     ah, aw = (a % x.dim() for a in axes)
     (sh, sw), (dh, dw) = (x.shape[ah], x.shape[aw]), dst_hw
     if dh < sh or dw < sw:
         raise ValueError(f"upsample_bilinear: {(sh, sw)} -> {(dh, dw)} "
                          f"shrinks an axis")
-    h_first = dh * sh * sw + dh * dw * sw <= sh * dw * sw + dh * dw * sh
+    n = 1 if rows is None else rows.size
+    gh, gdh = n * sh, n * dh      # the whole frame's rows
+    h_first = gdh * gh * sw + gdh * dw * sw <= gh * dw * sw + gdh * dw * gh
     for dim, dst in (((ah, dh), (aw, dw)) if h_first
                      else ((aw, dw), (ah, dh))):
         if x.shape[dim] != dst:
-            x = _lerp_axis(x, dim, dst).to(x.dtype)
+            x = (rows.lerp_rows(x, dim, dst) if rows is not None
+                 and dim == ah else _lerp_axis(x, dim, dst)).to(x.dtype)
     return x
 
 

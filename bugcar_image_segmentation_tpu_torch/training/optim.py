@@ -135,5 +135,41 @@ class AdamW:
         state.count += 1
 
 
-__all__ = ["AdamW", "AdamWState", "warmup_constant", "warmup_cosine_decay",
-           "Schedule"]
+@dataclasses.dataclass
+class SGDState:
+    """The step count."""
+
+    count: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class SGD:
+    """``optax.sgd(learning_rate)``: ``p -= lr * g``, no momentum (the
+    optimizer the parallel steps are held to the plain step with: Adam's
+    sign-like update would magnify the last bits that a split sum
+    moves)."""
+
+    learning_rate: Union[float, Schedule] = 1e-2
+
+    def lr(self, count: int) -> float:
+        lr = self.learning_rate
+        return lr(count) if callable(lr) else lr
+
+    def init(self, params: Dict[str, torch.Tensor]) -> SGDState:
+        return SGDState()
+
+    @torch.no_grad()
+    def step(self, params: Dict[str, torch.Tensor], state: SGDState) -> None:
+        """One update of ``params`` (in place) from their ``.grad``."""
+        ps = list(params.values())
+        missing = [n for n, p in params.items() if p.grad is None]
+        if missing:
+            raise ValueError(f"no gradient for {missing[:4]}")
+        # optax: updates = -lr * g, then p + updates
+        torch._foreach_add_(ps, torch._foreach_mul(
+            [p.grad for p in ps], -self.lr(state.count)))
+        state.count += 1
+
+
+__all__ = ["AdamW", "AdamWState", "SGD", "SGDState", "warmup_constant",
+           "warmup_cosine_decay", "Schedule"]

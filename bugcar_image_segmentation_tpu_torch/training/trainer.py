@@ -17,11 +17,15 @@ running statistics after the forward (Flax's ``mutable=["batch_stats"]``),
 draws ENet's dropout masks before the forward, and with ``remat=True``
 recomputes the forward in the backward (``torch.utils.checkpoint``) with
 the same masks and the same statistics.  With a ``mesh``
-(``parallel/mesh.py``) the step is data-parallel and equals the
-single-process step over the whole batch: BatchNorm sums, the loss's
-numerator and denominator and the gradients are summed over the ranks,
-and the masks are drawn for the global batch.  Unlike the JAX step, it
-updates the state in place.
+(``parallel/mesh.py``) the step equals the single-process step over the
+whole batch: BatchNorm sums, the loss's numerator and denominator and the
+gradients are summed over the mesh's batch axes, and the masks are drawn
+for the global batch.  A "data" axis splits the samples
+(``parallel.shard_batch``); a "space" axis splits their rows
+(``parallel.shard_batch_spatial``), and the model exchanges halos over
+it during the step (``parallel/halo.py``); a "model" axis holds the
+model's channel-wide leaves sliced (``parallel.shard_params_tp``).
+Unlike the JAX step, it updates the state in place.
 """
 
 from __future__ import annotations
@@ -176,14 +180,21 @@ def make_train_step(model: nn.Module,
 
     ``remat=True`` checkpoints the forward (``torch.utils.checkpoint``):
     the backward recomputes it, with the same masks and statistics, so the
-    step's result is the plain step's.  ``mesh``: data parallel over its
-    ranks (module docstring).
+    step's result is the plain step's.  ``mesh``: parallel over its axes
+    (module docstring); the masks are drawn for the samples of every
+    "data" rank, and a rank takes its samples' masks.
     """
+    from ..parallel.halo import RowShards, install_rows
+
     cw = (None if class_weights is None
           else torch.as_tensor(np.asarray(class_weights), dtype=torch.float32))
     bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
     draw = getattr(model, "dropout_masks", None)
-    rank, world = (0, 1) if mesh is None else (mesh.rank, mesh.world_size)
+    rank, world = ((0, 1) if mesh is None
+                   else (mesh.index("data"), mesh.size("data")))
+    rows = (None if mesh is None or mesh.size("space") == 1 else
+            RowShards(mesh.group("space"), mesh.size("space"),
+                      mesh.index("space"), mesh.device))
 
     def train_step(state: TrainState, images: torch.Tensor,
                    labels: torch.Tensor,
@@ -214,15 +225,21 @@ def make_train_step(model: nn.Module,
         def forward(x):
             return model(x, **kwargs)
 
-        logits = (checkpoint(forward, images, use_reentrant=False) if remat
-                  else forward(images))
-        new_stats = [bn.running_update() for bn in bns]
-        num, den = cross_entropy_terms(logits, labels, cw, ignore_label)
-        num_all = num.detach()
-        if mesh is not None:
-            num_all, den = mesh.all_reduce(num_all), mesh.all_reduce(den)
-        total = den.clamp_min(1.0)
-        (num / total).backward()
+        if rows is not None:
+            install_rows(model, rows)
+        try:
+            logits = (checkpoint(forward, images, use_reentrant=False)
+                      if remat else forward(images))
+            new_stats = [bn.running_update() for bn in bns]
+            num, den = cross_entropy_terms(logits, labels, cw, ignore_label)
+            num_all = num.detach()
+            if mesh is not None:
+                num_all, den = mesh.all_reduce(num_all), mesh.all_reduce(den)
+            total = den.clamp_min(1.0)
+            (num / total).backward()
+        finally:
+            if rows is not None:
+                install_rows(model, None)
         if mesh is not None:
             mesh.all_reduce_grads(list(params.values()))
         with torch.no_grad():

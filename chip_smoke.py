@@ -159,6 +159,19 @@ phase with its elapsed seconds:
    --synthetic 50 --model enet_fused_w16`` with four calibrations (16
    launches a tick) and ``torch_export_model.py`` (export, then ``--load
    --smoke``: 16 launches on the card).
+20. ``parallel_path`` — ``scripts/torch_parallel_check.py`` in two
+   processes sharing the card over gloo (NCCL refuses two ranks on one
+   device), at full width: the camera-sharded rig on ``enet_fused_w16``
+   (4 cameras, 512x256) bit-equal to the one-process rig;
+   ``shard_engine_tp`` on ``enet_fused`` (f32) and
+   ``shard_engine_spatial`` on ``enet`` (512x256) and ``segformer_b0``
+   (1024x1024), labels equal to the unsharded engines' (which must hold
+   more than one class); one dp1 x sp2 ENet
+   train step (batch 4) against the one-process step; the spatial ENet
+   artifact through ``call_sharded``; the ``fused_bottleneck`` launches
+   of the sharded rig and TP runs (16 each a rank) join the kernel line's
+   count; ms a frame beside the one-process program's, which with two
+   processes on one card is not a scaling result.
 
 Every path's grids of one frame alone, in a batch and in a stream must be
 equal, in bf16 too (SegFormer's engines run the backbone frame by frame,
@@ -303,6 +316,7 @@ TRAIN_F32 = {"loss_rtol": 1e-4, "grad_of_leaf_max": 5e-2,
              "grad_l2_rel": 2e-2, "stats": 1e-4}
 PROBE_LAUNCHES = {"strided_gather": 4, "strided_gather_bf16": 4,
                   "halo_add": 1}
+PARALLEL_RANKS = 2         # processes of the parallel path on the one card
 
 _T0 = time.perf_counter()
 
@@ -2667,6 +2681,30 @@ def serve_cli_phase(smi: str) -> dict:
     return launches
 
 
+def parallel_phase(smi: str) -> int:
+    """The ``parallel_path`` phase; returns its ``fused_bottleneck``
+    launches (every rank's, counted around its sharded runs)."""
+    t = time.perf_counter()
+    try:
+        res = load_script("torch_parallel_check").run(PARALLEL_RANKS,
+                                                      "cuda")
+    except RuntimeError as exc:
+        fail(f"parallel_path: {exc}")
+    by_rank = res.pop("launches_by_rank")
+    res["rank_seconds"] = res.pop("seconds")
+    for r, launches in enumerate(by_rank):
+        if launches != {"rig": 16, "tp": 16}:
+            fail(f"parallel_path: rank {r} launched fused_bottleneck "
+                 f"{launches}; expected 16 in the sharded rig (one batch "
+                 f"of its 2 cameras) and 16 in the TP forward")
+    emit("parallel_path", seconds=round(time.perf_counter() - t, 3),
+         ranks=PARALLEL_RANKS, backend="gloo",
+         timing=f"{PARALLEL_RANKS} processes sharing one card: not a "
+                f"scaling result", launches_by_rank=by_rank, **res,
+         nvidia_smi=smi)
+    return sum(n for launches in by_rank for n in launches.values())
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(DEADLINE_S, exit=True)
     import torch
@@ -2744,6 +2782,8 @@ def main() -> int:
         for name in ("flash_attention", "flash_attention_t"):
             seg_launches[name] += launches.get(name, 0)
         xc_launches["fused_sepconv"] += launches.get("fused_sepconv", 0)
+    # the sharded rig and tensor-parallel serving run the bottleneck
+    enet_entry["launches"] += parallel_phase(smi)
 
     # -- result --------------------------------------------------------------
     kernels = ([enet_entry] + [attention_entry(n, att, seg_launches)

@@ -19,10 +19,17 @@ baked in, a ``torch.export`` program in the port's container
   # inspect / smoke-run an artifact
   python scripts/torch_export_model.py --load pipe.bcseg [--smoke]
 
+  # a spatially partitioned engine for K ranks (rows of a frame split
+  # over them, parallel/spatial.py); rank 0 writes the artifact
+  torchrun --nproc-per-node K scripts/torch_export_model.py --model enet \
+      --out enet_sp.bcseg --spatial K --batch 1
+  # its smoke run, on as many ranks as it was exported for
+  torchrun --nproc-per-node K scripts/torch_export_model.py \
+      --load enet_sp.bcseg --smoke
+
 The program is exported for the device it runs on: the card unless
 ``--device cpu`` (or ``--platforms cpu``) is given.  SegFormer and UNet
-engines, which run frame by frame, need ``--batch``.  ``--spatial > 1``
-waits for the port's ``parallel/spatial.py``.
+engines, which run frame by frame, need ``--batch``.
 """
 
 import argparse
@@ -57,16 +64,17 @@ def parse_args(argv=None) -> argparse.Namespace:
                    metavar=("W_M", "H_M"))
     p.add_argument("--cell", type=float, default=0.1)
     p.add_argument("--spatial", type=int, default=1,
-                   help="a spatially partitioned program for this many "
-                        "cards; not in the port yet")
+                   help="export a spatially partitioned program: each "
+                        "frame's rows over this many ranks (launch with "
+                        "torchrun --nproc-per-node K); run it on an "
+                        "equal-sized mesh")
     p.add_argument("--load", help="inspect an existing artifact and exit")
     p.add_argument("--smoke", action="store_true",
                    help="with --load: run one zero input through it")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = p.parse_args(argv)
-    if args.spatial > 1:
-        p.error("--spatial > 1 (a frame's rows sharded over cards) needs the "
-                "port's parallel/spatial.py, which a later slice brings")
+    if args.spatial > 1 and args.calibration:
+        p.error("--spatial exports an engine endpoint, not a pipeline")
     if args.platforms:
         platforms = args.platforms.split(",")
         if len(platforms) != 1 or platforms[0] not in ("cuda", "cpu"):
@@ -94,19 +102,31 @@ def run(args: argparse.Namespace) -> dict:
     """Export (and reload) or inspect; the artifact's header, with the
     smoke outputs' shapes under ``"smoke_outputs"`` for ``--smoke``."""
     from bugcar_image_segmentation_tpu_torch import deploy
+    from bugcar_image_segmentation_tpu_torch.parallel import make_mesh
 
     if args.load:
         dep = deploy.load_artifact(args.load)
         meta = dict(dep.meta)
         print(json.dumps(meta, indent=2))
-        if args.smoke:
+        if args.smoke and dep.nr_devices > 1:
+            # the last input is the rank's coordinate (call_sharded's)
+            mesh = make_mesh(dep.nr_devices, device=dep.device.type)
+            try:
+                out = dep.call_sharded(
+                    mesh, *(_zeros(a) for a in meta["in_avals"][:-1]))
+            finally:
+                mesh.close()
+        elif args.smoke:
             out = dep(*(_zeros(a) for a in meta["in_avals"]))
+        if args.smoke:
             out = out if isinstance(out, tuple) else (out,)
             meta["smoke_outputs"] = [
                 [list(o.shape), str(o.dtype).replace("torch.", "")]
                 for o in out]
             print("smoke outputs:", meta["smoke_outputs"])
         return meta
+
+    import torch
 
     import bugcar_image_segmentation_tpu_torch as port
     from bugcar_image_segmentation_tpu_torch.utils.checkpoint import \
@@ -116,9 +136,23 @@ def run(args: argparse.Namespace) -> dict:
     if args.checkpoint:
         # a checkpoint freezes at its own resolution, not the name's default
         variables, cfg = load_variables(args.checkpoint)
+    mesh = None
+    if args.spatial > 1:
+        from bugcar_image_segmentation_tpu_torch.parallel import \
+            shard_engine_spatial
+        mesh = make_mesh(args.spatial, axes=("space",), device=args.device)
     engine = port.build_engine(args.model, cfg=cfg, variables=variables,
                                device=args.device)
-    if args.calibration:
+    if mesh is not None:
+        shard_engine_spatial(engine, mesh)
+        try:
+            if mesh.rank == 0:
+                deploy.export_engine_to(args.out, engine, fn=args.fn,
+                                        batch=args.batch)
+            torch.distributed.barrier()
+        finally:
+            mesh.close()
+    elif args.calibration:
         cal = port.CalibrationConfig.load_json(args.calibration)
         grid_cfg = port.GridConfig(width_m=args.grid_size[0],
                                    height_m=args.grid_size[1],

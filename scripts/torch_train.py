@@ -14,7 +14,10 @@ package's ``load_variables`` reads it).
 It runs on the card unless ``--device cpu`` is given.  Data parallel over
 N cards: ``torchrun --nproc-per-node N scripts/torch_train.py --devices N
 ...`` (every rank draws the global batch and takes its shard; rank 0
-logs and writes the checkpoint).
+logs and writes the checkpoint).  Add ``--spatial K`` to also split each
+image's rows over K of them (``parallel/spatial.py``): the mesh becomes
+(N/K data) x (K space), for resolutions whose activations do not fit one
+card.
 
 Images and labels pair by sorted filename: ``.npy`` files (uint8 BGR
 (H, W, 3) frames and (H, W) class ids), which is all the card host can
@@ -107,7 +110,9 @@ def main() -> int:
                    help="data-parallel ranks (launch with torchrun "
                         "--nproc-per-node N)")
     p.add_argument("--spatial", type=int, default=1,
-                   help="row-sharded training; not in the port yet")
+                   help="also shard each image's rows over this many of "
+                        "the --devices ranks (spatial partitioning): the "
+                        "mesh becomes (devices/N) data x N space")
     p.add_argument("--log-every", type=int, default=50)
     p.add_argument("--out", required=True, help="msgpack checkpoint path")
     p.add_argument("--resume", help="msgpack checkpoint to start from")
@@ -115,8 +120,12 @@ def main() -> int:
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args()
     if args.spatial > 1:
-        p.error("--spatial > 1 (rows sharded over cards) needs the port's "
-                "parallel/spatial.py, which a later slice of the port brings")
+        if args.devices % args.spatial:
+            p.error(f"--spatial {args.spatial} does not divide the "
+                    f"{args.devices} devices")
+        if args.height % args.spatial:
+            p.error(f"--spatial {args.spatial} does not divide the image "
+                    f"height {args.height}")
 
     import torch
 
@@ -144,12 +153,15 @@ def main() -> int:
             p.error(f"--devices {args.devices}: launch with torchrun "
                     f"--nproc-per-node {args.devices}")
         from bugcar_image_segmentation_tpu_torch.parallel import (
-            make_mesh, replicate, shard_batch)
-        mesh = make_mesh(args.devices, device=args.device)
+            make_mesh, replicate, shard_batch, shard_batch_spatial)
+        data = args.devices // args.spatial
+        if args.batch % data:
+            p.error(f"--batch {args.batch} does not divide over {data} "
+                    f"data ranks")
+        mesh = make_mesh(args.devices, axes=("data", "space"),
+                         shape=(data, args.spatial), device=args.device)
         device = mesh.device
-        if args.batch % args.devices:
-            p.error(f"--batch {args.batch} does not divide over "
-                    f"{args.devices} ranks")
+        place = shard_batch_spatial if args.spatial > 1 else shard_batch
     else:
         device = torch.device(args.device)
     lead = mesh is None or mesh.rank == 0
@@ -212,7 +224,7 @@ def main() -> int:
     for step in range(args.steps):
         images, labels = preprocess(*batch())
         if mesh is not None:
-            images, labels = shard_batch((images, labels), mesh)
+            images, labels = place((images, labels), mesh)
         state, loss = train_step(state, images, labels, drop_gen)
         if lead and step % args.log_every == 0:
             log.info("step %d loss %.4f", step, float(loss))

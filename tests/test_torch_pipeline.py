@@ -53,7 +53,8 @@ SLICE_MODULES = ("ops.cuda.attention", "models.segformer",
                  "fusion", "fov", "msg", "evaluation", "training.optim",
                  "training.trainer", "training.augment", "parallel.mesh",
                  "io.ring", "io.sources", "io.health", "ops.cuda.library",
-                 "deploy", "utils.profiling")
+                 "deploy", "utils.profiling", "parallel.halo",
+                 "parallel.multicam", "parallel.tp", "parallel.spatial")
 GRID = (4.0, 4.0, 0.2)
 MODEL = dict(input_width=64, input_height=32, dtype="float32")
 

@@ -180,7 +180,8 @@ def test_export_cli_respects_checkpoint_config(tmp_path):
     assert meta["input_hw"] == [64, 96], meta
 
 
-@pytest.mark.parametrize("argv", [["--spatial", "2"],
+@pytest.mark.parametrize("argv", [["--spatial", "2", "--calibration",
+                                   "cal.json"],
                                   ["--platforms", "tpu"],
                                   ["--platforms", "cuda,cpu"], []])
 def test_export_cli_refusals(argv, tmp_path):
