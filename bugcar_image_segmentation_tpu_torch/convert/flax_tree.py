@@ -25,7 +25,7 @@ leaf and bit for bit.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Sequence
+from typing import Dict, Mapping, Sequence, Set
 
 import numpy as np
 import torch
@@ -39,7 +39,9 @@ def strict_state_dict(variables: Mapping, model: nn.Module,
                       ) -> Dict[str, torch.Tensor]:
     """Flax variable tree (numpy leaves) → ``model``'s state dict, checked
     leaf for leaf against it; ``transposed`` names the modules whose
-    kernels are transposed convs."""
+    kernels are transposed convs (by their last name or their whole
+    dotted one).  A 2-D kernel fills a Dense's 2-D weight, (in, out) →
+    (out, in)."""
     what = type(model).__name__
     want = {k: tuple(t.shape) for k, t in model.state_dict().items()}
     out: Dict[str, torch.Tensor] = {}
@@ -48,12 +50,18 @@ def strict_state_dict(variables: Mapping, model: nn.Module,
             name = path[-1]
             leaf = np.asarray(leaf, np.float32)
             if name == "kernel":
-                if leaf.ndim != 4:
+                dense = len(want.get(".".join(path[:-1] + ("weight",)),
+                                     ())) == 2
+                if dense and leaf.ndim == 2:
+                    leaf = leaf.T
+                elif leaf.ndim != 4:
                     raise ValueError(f"{'/'.join(path)}: a {leaf.ndim}-D "
                                      f"kernel; every {what} conv is 4-D")
-                leaf = (np.flip(leaf, (0, 1)).transpose(2, 3, 0, 1)
-                        if path[-2] in transposed
-                        else leaf.transpose(3, 2, 0, 1))
+                elif (path[-2] in transposed
+                      or ".".join(path[:-1]) in transposed):
+                    leaf = np.flip(leaf, (0, 1)).transpose(2, 3, 0, 1)
+                else:
+                    leaf = leaf.transpose(3, 2, 0, 1)
                 name = "weight"
             key = ".".join(path[:-1] + (name,))
             if key not in want:
@@ -118,11 +126,7 @@ def flax_variables(model: nn.Module) -> dict:
     ``var`` → ``batch_stats``, every other leaf as it is.  The transposed
     convs are the port's ``ConvTranspose`` (ENet) and ``UpConv2x`` (UNet)
     modules."""
-    from ..models.enet import ConvTranspose
-    from ..models.unet import UpConv2x
-
-    transposed = {name for name, m in model.named_modules()
-                  if isinstance(m, (ConvTranspose, UpConv2x))}
+    transposed = transposed_modules(model)
     params: dict = {}
     stats: dict = {}
     for key, t in model.state_dict().items():
@@ -147,6 +151,23 @@ def flax_variables(model: nn.Module) -> dict:
     return out
 
 
+def transposed_modules(model: nn.Module) -> Set[str]:
+    """The dotted names of ``model``'s transposed convs: the port's
+    ``ConvTranspose`` (ENet) and ``UpConv2x`` (UNet) modules."""
+    from ..models.enet import ConvTranspose
+    from ..models.unet import UpConv2x
+
+    return {name for name, m in model.named_modules()
+            if isinstance(m, (ConvTranspose, UpConv2x))}
+
+
+def module_state_dict(variables: Mapping, model: nn.Module
+                      ) -> Dict[str, torch.Tensor]:
+    """:func:`flax_variables`'s inverse for any port model: its Flax tree
+    → its state dict, strictly (:func:`strict_state_dict`)."""
+    return strict_state_dict(variables, model, transposed_modules(model))
+
+
 def classifier_width(variables: Mapping, what: str) -> int:
     """The classes of a segmentation tree: its classifier's width; ``what``
     names the tree in the error ("an Xception-65 DeepLab")."""
@@ -158,4 +179,5 @@ def classifier_width(variables: Mapping, what: str) -> int:
 
 
 __all__ = ["strict_state_dict", "random_variables", "flax_variables",
+           "transposed_modules", "module_state_dict",
            "classifier_width"]

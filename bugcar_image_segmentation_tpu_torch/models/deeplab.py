@@ -83,11 +83,12 @@ class ASPP(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         branches = [getattr(self, f"b{i}")(x)
                     for i in range(self.num_rates + 1)]
-        # the mean sums in f32, as jnp.mean does for bf16
+        # the mean sums in f32 (f64 for f64), as jnp.mean does for bf16
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         if self.rows is None:
-            pooled = x.float().mean(dim=(1, 2), keepdim=True)
+            pooled = xf.mean(dim=(1, 2), keepdim=True)
         else:
-            pooled = self.rows.sum(x.float().sum(dim=(1, 2), keepdim=True)
+            pooled = self.rows.sum(xf.sum(dim=(1, 2), keepdim=True)
                                    ) / (self.rows.size * x.shape[1]
                                         * x.shape[2])
         pooled = pooled.to(x.dtype)
@@ -139,8 +140,9 @@ class DeepLabV3(nn.Module):
     throughout.
 
     Input (N, H, W, 3) NHWC with H, W divisible by 16, computed in
-    :attr:`dtype`; output float32 logits (N, H, W, classes), or (N, H/4,
-    W/4, classes) with ``head_upsample="quarter"`` in eval mode.  Train
+    :attr:`dtype`; output float32 logits (float64 for a float64 model),
+    (N, H, W, classes), or (N, H/4, W/4, classes) with
+    ``head_upsample="quarter"`` in eval mode.  Train
     mode (``train()``) takes BatchNorm statistics from the batch and always
     upsamples the logits to the input, as the Flax module does;
     :attr:`compute_dtype` computes in that dtype from f32 weights.
@@ -198,7 +200,8 @@ class DeepLabV3(nn.Module):
                       self.rows)
         ll = self.low_proj(low_level)
         y = torch.cat([y, ll.to(y.dtype)], dim=-1)
-        y = self.classifier(self.dec1(self.dec0(y))).float()
+        y = self.classifier(self.dec1(self.dec0(y)))
+        y = y.to(torch.promote_types(y.dtype, torch.float32))
         if self.head_upsample == "quarter" and not self.training:
             return y
         return _upsample(y, (x.shape[1], x.shape[2]), self.rows)

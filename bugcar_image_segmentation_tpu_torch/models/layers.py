@@ -88,11 +88,13 @@ class BatchNorm(nn.Module):
     """``nn.BatchNorm`` over the channel axis (the last; ENet's subclass
     takes axis 1), as Flax computes it.
 
-    Eval mode: ``(x - mean) * (scale * rsqrt(var + eps)) + bias`` in f32
-    from the running statistics, cast to the input's dtype.
+    Eval mode: ``(x - mean) * (scale * rsqrt(var + eps)) + bias`` from
+    the running statistics, cast to the input's dtype.  Both modes compute
+    in the wider of the input's dtype and f32, as Flax does (f32 for bf16
+    and f32 inputs, f64 for f64 ones).
 
     Train mode (``self.training``): the same from the batch's statistics,
-    taken in f32 as Flax takes them (``use_fast_variance``): the biased
+    taken as Flax takes them (``use_fast_variance``): the biased
     ``var = max(E[x²] - E[x]², 0)``.  Gradients reach ``scale``, ``bias``
     and the input through the statistics.  The forward leaves the running
     statistics alone; it keeps the batch's as :attr:`batch_stats`, and
@@ -127,7 +129,8 @@ class BatchNorm(nn.Module):
         return t.view(shape)
 
     def forward_train(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
+        ct = torch.promote_types(x.dtype, torch.float32)
+        xf = x.to(ct)
         c = self.channel_dim % x.dim()
         dims = [d for d in range(x.dim()) if d != c]
         n = x.numel() // x.shape[c]
@@ -137,9 +140,9 @@ class BatchNorm(nn.Module):
         mean, mean2 = moments / n
         var = torch.clamp_min(mean2 - mean * mean, 0.0)
         self.batch_stats = (mean.detach(), var.detach())
-        mul = torch.rsqrt(var + self.eps) * self.scale.float()
+        mul = torch.rsqrt(var + self.eps) * self.scale.to(ct)
         y = ((xf - self._view(mean, x.dim())) * self._view(mul, x.dim())
-             + self._view(self.bias.float(), x.dim()))
+             + self._view(self.bias.to(ct), x.dim()))
         return y.to(x.dtype)
 
     @torch.no_grad()
@@ -152,8 +155,9 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             return self.forward_train(x)
-        mul = self.scale.float() * torch.rsqrt(self.var.float() + self.eps)
-        y = (x.float() - self.mean.float()) * mul + self.bias.float()
+        ct = torch.promote_types(x.dtype, torch.float32)
+        mul = self.scale.to(ct) * torch.rsqrt(self.var.to(ct) + self.eps)
+        y = (x.to(ct) - self.mean.to(ct)) * mul + self.bias.to(ct)
         return y.to(x.dtype)
 
 

@@ -196,6 +196,10 @@ class EfficientAttention(nn.Module):
         n, l, c = x.shape
         h, w = hw
         heads, d = self.num_heads, self.dim // self.num_heads
+        # q first, as the Flax module computes it (and creates its weights:
+        # the frozen-graph converter pours in that order)
+        q = (self.q(x).view(n, 1, l, d) if heads == 1
+             else self.q.forward_t(x).view(n, heads, d, l))
         kv_in = x
         if self.sr_ratio > 1:
             kv_in = self.sr(x.reshape(n, h, w, c)).reshape(n, -1, c)
@@ -205,13 +209,11 @@ class EfficientAttention(nn.Module):
         lkv = kv_in.shape[1]
         if heads == 1:
             attend = attention_reference if xla_attention else flash_attention
-            out = attend(self.q(x).view(n, 1, l, d),
-                         self.k(kv_in).view(n, 1, lkv, d),
+            out = attend(q, self.k(kv_in).view(n, 1, lkv, d),
                          self.v(kv_in).view(n, 1, lkv, d))
             return self.proj(out.view(n, l, c))
         attend = attention_reference_t if xla_attention else flash_attention_t
-        out = attend(self.q.forward_t(x).view(n, heads, d, l),
-                     self.k.forward_t(kv_in).view(n, heads, d, lkv),
+        out = attend(q, self.k.forward_t(kv_in).view(n, heads, d, lkv),
                      self.v.forward_t(kv_in).view(n, heads, d, lkv))
         return self.proj.from_t(out.view(n, c, l))
 

@@ -19,14 +19,16 @@ kernel of ``ops/cuda/sepconv.py`` (the plain version on CPU tensors)
 where the JAX model sends them through its Pallas kernel: the same gate
 (:meth:`SepConvBN.uses_kernel`), so the port's ``_fs`` is the same
 function as the JAX ``_fs`` — 7 entry-flow sites and 3 per middle block,
-55 launches per backbone batch at the default 16 middle blocks.  The
-exit flow (dilation 2) always takes the plain path.
+55 launches per backbone batch at the default 16 middle blocks, in eval
+mode only.  The exit flow (dilation 2) always takes the plain path.
+Train mode (``train()``) is the Flax module's ``train=True``: batch
+statistics, full-resolution logits, plain convs everywhere.
 
 ``pw_int8`` (engine suffix ``_int8``) computes the pointwise 1x1s with C
 and F both >= 512 (block 3's sep1 and sep2, the middle flow, the exit
 flow) by the W8A8 int8 product of ``ops/quant.py`` (``Int8Conv1x1``),
-from int8 weights made from the f32 pointwise kernel; as in the JAX
-model it turns the fused kernel off at every site.
+from int8 weights made from the f32 pointwise kernel (eval mode only);
+as in the JAX model it turns the fused kernel off at every site.
 
 Numerics, as the Flax module: conv weights are used in the activation
 dtype (:meth:`Xception65DeepLab.to_compute_dtype` casts them once),
@@ -38,7 +40,7 @@ and the final x4 upsample of the logits runs in f32.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -71,13 +73,17 @@ class SepConvBN(nn.Module):
         self.pointwise = Conv(cin, features, 1, bias=False)
         self.pointwise_bn = BatchNorm(features, BN_EPS)
         self._kernel_args: Union[Dict[str, torch.Tensor], None] = None
+        self.train(False)   # built to serve, as BatchNorm is
 
     def uses_kernel(self, x: torch.Tensor) -> bool:
-        """The JAX model's gate (xception.py ``use_fused``): fused, dilation
-        1, and stride 1, or stride 2 on even H, W with C == 128 (the
-        Pallas kernel's strided load needs 128 lanes)."""
+        """The JAX model's gate (xception.py ``use_fused``): eval mode,
+        fused, dilation 1, and stride 1, or stride 2 on even H, W with
+        C == 128 (the Pallas kernel's strided load needs 128 lanes).  In
+        train mode the kernel, which has no backward and folds the running
+        statistics, gives way to the plain convs and batch statistics."""
         h, w, c = x.shape[1], x.shape[2], x.shape[3]
-        return (bool(self.fused) and self.dilation == 1
+        return (not self.training and bool(self.fused)
+                and self.dilation == 1
                 and (self.stride == 1
                      or (self.stride == 2 and h % 2 == 0 and w % 2 == 0
                          and c == 128)))
@@ -119,7 +125,8 @@ class SepConvBN(nn.Module):
                                  a["s2"], a["b2"], strides=self.stride,
                                  act_out=self.act_out)
         y = torch.relu(self.depthwise_bn(self.depthwise(x)))
-        y = self.pointwise_int8(y) if self.int8 else self.pointwise(y)
+        y = (self.pointwise_int8(y) if self.int8 and not self.training
+             else self.pointwise(y))
         y = self.pointwise_bn(y)
         return torch.relu(y) if self.act_out else y
 
@@ -160,8 +167,13 @@ class Xception65DeepLab(nn.Module):
     """DeepLabV3+ / Xception-65, output stride 16.
 
     Input (N, H, W, 3) NHWC with H, W divisible by 16, computed in
-    :attr:`dtype`; output float32 logits (N, H, W, classes), or (N, H/4,
-    W/4, classes) with ``head_upsample="quarter"``.  ``fused_sepconv``:
+    :attr:`dtype`; output float32 logits (float64 for a float64 model),
+    (N, H, W, classes), or (N, H/4, W/4, classes) with
+    ``head_upsample="quarter"`` in eval mode.  Train
+    mode (``train()``) is the Flax module's ``train=True``: BatchNorm from
+    the batch's statistics, full-resolution logits, and neither the fused
+    kernel nor the int8 pointwise; :attr:`compute_dtype` computes in that
+    dtype from f32 weights.  ``fused_sepconv``:
     False, True / "all" (entry and middle flows), "entry", "middle" or
     "block1" / "block2" / "block3", as the JAX model's.  ``pw_int8``: the
     int8 pointwise (module docstring); the JAX model's ``dw_shift``
@@ -169,6 +181,7 @@ class Xception65DeepLab(nn.Module):
     (``parallel/spatial.py``).
     """
 
+    compute_dtype: Optional[torch.dtype] = None
     rows = None
 
     def __init__(self, num_classes: int = 15, middle_blocks: int = 16,
@@ -209,6 +222,7 @@ class Xception65DeepLab(nn.Module):
         self.dec0 = ConvBN(256 + 48, 256, 3)
         self.dec1 = ConvBN(256, 256, 3)
         self.classifier = Conv(256, num_classes, 1)
+        self.eval()     # the kernel and the quarter head serve until train()
 
     def _fuse(self, site: str) -> bool:
         f = self.fused_sepconv
@@ -220,6 +234,8 @@ class Xception65DeepLab(nn.Module):
 
     @property
     def dtype(self) -> torch.dtype:
+        if self.compute_dtype is not None:
+            return self.compute_dtype
         return self.conv1_1.Conv_0.weight.dtype
 
     def sepconvs(self):
@@ -277,13 +293,15 @@ class Xception65DeepLab(nn.Module):
 
     def decode(self, y: torch.Tensor, low_level: torch.Tensor,
                out_hw: Tuple[int, int]) -> torch.Tensor:
-        """ASPP output and block 2's tap → f32 logits (decoder and head)."""
+        """ASPP output and block 2's tap → f32 logits (f64 for a
+        float64 model; decoder and head)."""
         y = _upsample(y, (low_level.shape[1], low_level.shape[2]),
                       self.rows)
         ll = self.low_proj(low_level)
         y = torch.cat([y, ll.to(y.dtype)], dim=-1)
-        y = self.classifier(self.dec1(self.dec0(y))).float()
-        if self.head_upsample == "quarter":
+        y = self.classifier(self.dec1(self.dec0(y)))
+        y = y.to(torch.promote_types(y.dtype, torch.float32))
+        if self.head_upsample == "quarter" and not self.training:
             return y
         return _upsample(y, out_hw, self.rows)
 

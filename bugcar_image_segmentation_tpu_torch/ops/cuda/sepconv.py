@@ -220,11 +220,14 @@ def check_args(x: torch.Tensor, wdw: torch.Tensor, s1: torch.Tensor,
                b1: torch.Tensor, wpw: torch.Tensor, s2: torch.Tensor,
                b2: torch.Tensor, *, strides: int = 1) -> None:
     """Check a CUDA launch's operands (``wpw`` in x's dtype); raises
-    ValueError.  Reads shapes, dtypes and devices only, so it runs on the
-    fake tensors of an export too."""
+    ValueError.  Reads shapes, dtypes, devices and grad flags only, so it
+    runs on the fake tensors of an export too."""
     _check_stride(x, strides)
     if x.device.type != _CARD:
         _need(False, f"x must be a CUDA tensor, got {x.device}")
+    if any(t.requires_grad for t in (x, wdw, s1, b1, wpw, s2, b2)):
+        _need(False, "the kernel has no backward; inputs that require grad "
+                     "take the plain convs (Xception does in train mode)")
     if x.dim() != 4:
         _need(False, f"x must be (N, H, W, C), got {tuple(x.shape)}")
     if x.dtype not in (torch.float32, torch.bfloat16):

@@ -64,13 +64,15 @@ def resize_nearest(img: torch.Tensor, dst_hw: Tuple[int, int]) -> torch.Tensor:
 
 
 def _lerp_axis(x: torch.Tensor, dim: int, dst: int) -> torch.Tensor:
-    """Half-pixel-centre bilinear resampling of one axis, in f32."""
+    """Half-pixel-centre bilinear resampling of one axis, in f32 (f64 for
+    f64 input)."""
     i0, i1, frac = _on_device("linear", x.shape[dim], dst, x.device)
+    ct = torch.promote_types(x.dtype, torch.float32)
     shape = [1] * x.dim()
     shape[dim] = dst
-    frac = frac.view(shape)
-    lo = x.index_select(dim, i0).float()
-    hi = x.index_select(dim, i1).float()
+    frac = frac.view(shape).to(ct)
+    lo = x.index_select(dim, i0).to(ct)
+    hi = x.index_select(dim, i1).to(ct)
     return lo * (1.0 - frac) + hi * frac
 
 

@@ -53,21 +53,22 @@ def cross_entropy_terms(logits: torch.Tensor, labels: torch.Tensor,
                         class_weights: Optional[torch.Tensor] = None,
                         ignore_label: int = 255
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(sum(nll * w), sum(w)) of :func:`softmax_cross_entropy`, in f32.
+    """(sum(nll * w), sum(w)) of :func:`softmax_cross_entropy`, in f32
+    (f64 for f64 logits, so that a float64 step is float64 throughout).
 
     A pixel counts with weight ``w`` = 1 (or its class's weight) when its
     label is a class, 0 when it is ``ignore_label`` or out of range.  The
     picked logit is a gather; the JAX package's one-hot sum adds it to
     zeros, so both give the same value."""
     num_classes = logits.shape[-1]
-    lf = logits.float()
+    lf = logits.to(torch.promote_types(logits.dtype, torch.float32))
     valid = (labels != ignore_label) & (labels < num_classes)
     safe = torch.where(valid, labels, 0).long()
     lse = torch.logsumexp(lf, dim=-1)
     picked = lf.gather(-1, safe[..., None])[..., 0]
-    w = valid.float()
+    w = valid.to(lf.dtype)
     if class_weights is not None:
-        w = w * class_weights.to(lf.device, torch.float32)[safe]
+        w = w * class_weights.to(lf.device, lf.dtype)[safe]
     return ((lse - picked) * w).sum(), w.sum()
 
 

@@ -138,7 +138,27 @@ phase with its elapsed seconds:
    ``scripts/torch_train.py`` for 3 steps on ``.npy`` pairs with
    ``--augment``; and the data-parallel step on a one-rank NCCL group
    equal to the plain step bit for bit.
-18. ``deploy_path`` — ``deploy.py``'s artifacts (``torch.export``, the
+18. ``xception_train_path`` — DeepLabV3+ / Xception-65 at 1024x512 (16
+   middle blocks, 15 classes) built with ``fused_sepconv=True``, trained
+   10 steps at batch 4 (bf16 over f32, AdamW 3e-4, ``synthetic.dataset``
+   pairs): ``fused_sepconv`` launches read around exactly the steps (0:
+   the kernel is gated off in train mode), ms a step, images a second,
+   peak memory, finite losses, a lower fixed-batch loss; one step at
+   256x128 on the card against the same step on the CPU, in float64
+   (``XC_F64``) and in f32 (``XC_F32_FACTOR``), which a one-site fault
+   must fail, and the f32 one with TF32 on; the trained weights through
+   ``flax_variables`` → ``save_variables`` → ``load_variables`` into
+   ``deeplab_xception_fs`` and ``deeplab_xception`` (f32 grids equal, the
+   bf16 gates, 55 launches a forward, which join the kernel line's
+   count), and the kernel against ``sepconv_reference`` on the trained
+   folded arguments at every site shape of the path (bf16, f32);
+   ``scripts/torch_bench_train.py --models enet deeplab_xception
+   --batches 4 --iters 2 6`` in this process; and the cv2-free host
+   tools: ``compat.ENET()`` / ``compat.DeepLabV3()`` with no ``.pb``,
+   ``bev_transform_tools`` against ``OccupancyGridBuilder``,
+   ``torch_calibrate.py --corners`` driving a ``Pipeline`` (no
+   TensorFlow, h5py or transformers imported).
+19. ``deploy_path`` — ``deploy.py``'s artifacts (``torch.export``, the
    serving kernels as ``bugcar::`` ops) at full width with seeded
    weights: bench.py's ``enet_fused_w16`` pipeline (host resize, i420,
    the packed (384, 512) planes in), ``segformer_b0`` ``predict`` at
@@ -152,14 +172,14 @@ phase with its elapsed seconds:
    turns; the pipeline artifact loaded again in a process where
    ``models``, ``convert``, ``pipeline`` and ``grid`` cannot be imported
    gives the same grid.
-19. ``serve_cli`` — the serving CLIs in this process (``load_script``):
+20. ``serve_cli`` — the serving CLIs in this process (``load_script``):
    ``torch_inference_video.py --synthetic 200`` with ``--model enet``
    (200/200 frames, 0 dropped, fps) and ``--synthetic 60 --model
    segformer`` (8 attention launches a frame), ``torch_serve_rig.py
    --synthetic 50 --model enet_fused_w16`` with four calibrations (16
    launches a tick) and ``torch_export_model.py`` (export, then ``--load
    --smoke``: 16 launches on the card).
-20. ``parallel_path`` — ``scripts/torch_parallel_check.py`` in two
+21. ``parallel_path`` — ``scripts/torch_parallel_check.py`` in two
    processes sharing the card over gloo (NCCL refuses two ranks on one
    device), at full width: the camera-sharded rig on ``enet_fused_w16``
    (4 cameras, 512x256) bit-equal to the one-process rig;
@@ -314,6 +334,37 @@ SERVE_TICKS = 50           # torch_serve_rig.py --synthetic, 4 cameras
 # ones, tests/test_torch_training.py).
 TRAIN_F32 = {"loss_rtol": 1e-4, "grad_of_leaf_max": 5e-2,
              "grad_l2_rel": 2e-2, "stats": 1e-4}
+# The Xception train path: DeepLabV3+ / Xception-65 at 1024x512 (16 middle
+# blocks, 15 classes) built with fused_sepconv=True, bf16 over f32 master
+# weights, AdamW lr 3e-4, batch 4, 10 steps on synthetic.dataset pairs
+# (a pool of 8); the trained weights then serve 4 frames a dtype.
+XC_TRAIN_BATCH = 4
+XC_TRAIN_STEPS = 10
+XC_TRAIN_POOL = 8
+XC_SERVE_FRAMES = 4
+# One Xception step (batch 2) at 256x128, all 16 middle blocks, from the
+# same weights and inputs on the card and on the CPU, in float64 and in f32
+# (TF32 off).  At this size the step is ill-conditioned: on the CPU a
+# float64 step on the input moved by 2^-24 of itself moves the gradient
+# leaves ~6 % (median, relative L2; worst ~9 %), so two f32 steps that
+# round in another order cannot agree to TRAIN_F32 (PERF.md §6).
+# Hence two gates.  float64, card against CPU, under XC_F64: the sharp
+# check of the step's code on the card.  f32, card against CPU directly:
+# each distance within TRAIN_F32's budget, or within XC_F32_FACTOR times
+# the CPU f32's own distance from the CPU float64 step where that is
+# larger (two f32 roundings sit at most ~sqrt(2) times one apart).  Both
+# gates must fail a one-site fault (XC_FAULT_SITE's BatchNorm statistics
+# detached from the graph), and the f32 gate the card's f32 step with
+# TF32 on.  Reported beside them: the card's float64 step on the
+# perturbed input (the conditioning).  On an NVIDIA H100 80GB HBM3 at
+# 700 W: float64 4e-12 at the worst leaf, f32 8.0 % (median) / 10.2 %
+# (worst), the fault 0.59 at its own leaf, TF32 132 % (median).
+XC_F32_HW = (128, 256)
+XC_F32_FACTOR = 2.0
+XC_F64 = {"loss_rel": 1e-9, "grad_of_leaf_max": 1e-6,
+          "grad_l2_rel_worst": 1e-6, "grad_l2_rel_median": 1e-6,
+          "stats": 1e-9}
+XC_FAULT_SITE = "middle8.sep1.pointwise_bn"
 PROBE_LAUNCHES = {"strided_gather": 4, "strided_gather_bf16": 4,
                   "halo_add": 1}
 PARALLEL_RANKS = 2         # processes of the parallel path on the one card
@@ -2069,13 +2120,14 @@ def train_run(model, hw, batch: int, steps: int, frames, labels,
     """``steps`` bf16 train steps of ``model`` (f32 master weights) on
     batches drawn from the (frames, labels) pool on the card; the first
     ``batch`` pairs are the fixed batch whose train-mode loss (no dropout,
-    no update) is read before and after.  Returns the record and the
-    state."""
+    no update) is read before and after; the kernel launches read around
+    exactly the steps must be none.  Returns the record and the state."""
     import numpy as np
     import torch
 
     import bugcar_image_segmentation_tpu_torch as port
     from bugcar_image_segmentation_tpu_torch.models import preprocess as pre
+    from bugcar_image_segmentation_tpu_torch.ops import cuda as kcuda
     from bugcar_image_segmentation_tpu_torch.training import (
         AdamW, create_train_state, make_train_step, softmax_cross_entropy)
 
@@ -2104,6 +2156,7 @@ def train_run(model, hw, batch: int, steps: int, frames, labels,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ms, losses = [], []
+    kcuda.reset_launches()
     for _ in range(steps):
         x, y = prep(rng.integers(0, frames.shape[0], batch))
         torch.cuda.synchronize()
@@ -2112,6 +2165,10 @@ def train_run(model, hw, batch: int, steps: int, frames, labels,
         torch.cuda.synchronize()
         ms.append(1e3 * (time.perf_counter() - t0))
         losses.append(float(loss))
+    launches = {k: n for k, n in kcuda.LAUNCHES.items() if n}
+    if launches:
+        fail(f"{type(model).__name__} train steps launched kernels: "
+             f"{launches} (every kernel is gated off in train mode)")
     peak = torch.cuda.max_memory_allocated()
     after = fixed_loss()
     name = type(model).__name__
@@ -2127,6 +2184,7 @@ def train_run(model, hw, batch: int, steps: int, frames, labels,
             "first_steps_ms": ms[:TRAIN_TIMED_FROM],
             "images_per_s": 1e3 * batch / med,
             "max_memory_allocated": int(peak),
+            "kernel_launches_in_steps": launches,
             "losses": losses, "fixed_batch_loss_before": before,
             "fixed_batch_loss_after": after}, state
 
@@ -2394,6 +2452,395 @@ def train_phase(smi: str) -> dict:
          setup_seconds=round(setup_s, 3), enet=rec, f32_card_vs_cpu=f32,
          train_to_serve=serve, others=others, cli=cli, dp_one_rank=dp,
          nvidia_smi=smi)
+    return serve["launches"]
+
+
+def xception_step_card_vs_cpu(frames, labels, card: str = "cuda") -> dict:
+    """One Xception step at ``XC_F32_HW``, batch 2, from the same weights
+    and inputs: card against CPU in float64 (``XC_F64``) and in f32
+    (``XC_F32_FACTOR``); a one-site fault must fail both gates, TF32 the
+    f32 one.
+    ``card="cpu"`` dry-runs the comparison with the CPU in the card's
+    place (the f32 distances are then 0)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    import bugcar_image_segmentation_tpu_torch as port
+    from bugcar_image_segmentation_tpu_torch.models import preprocess as pre
+    from bugcar_image_segmentation_tpu_torch.models.xception import \
+        Xception65DeepLab
+    from bugcar_image_segmentation_tpu_torch.training import (
+        AdamW, create_train_state, make_train_step)
+
+    hw = XC_F32_HW
+    cfg = port.ModelConfig(input_width=hw[1], input_height=hw[0],
+                           dtype="float32")
+    x = pre.preprocess_for_config(frames[:2].cpu(), cfg).double()
+    y = F.interpolate(labels[:2, None].cpu().float(), size=hw,
+                      mode="nearest")[:, 0].long()
+    moved = x * (1 + 2.0 ** -24 * torch.randn(
+        x.shape, generator=torch.Generator().manual_seed(SEED),
+        dtype=torch.float64))
+
+    def step(dev, dt, inp=x, fault=False, tf32=False):
+        model = Xception65DeepLab(15, fused_sepconv=True)
+        state = create_train_state(model, (1,) + hw + (3,),
+                                   optimizer=AdamW(TRAIN_LR), seed=SEED,
+                                   device=dev)
+        model.to(dt)
+        if fault:       # the statistics leave the graph at one site
+            bn = model.get_submodule(XC_FAULT_SITE)
+            plain = bn.forward_train
+
+            def detached(z):
+                bn.sync = lambda m, n: (m.detach(), n)
+                return plain(z)
+            bn.forward_train = detached
+        torch.backends.cudnn.allow_tf32 = tf32
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            t0 = time.perf_counter()
+            state, loss = make_train_step(model)(state, inp.to(dev, dt),
+                                                 y.to(dev))
+            loss = float(loss)
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+        return dict(loss=loss, seconds=time.perf_counter() - t0,
+                    grads={k: p.grad.cpu().double()
+                           for k, p in model.named_parameters()},
+                    stats={k: v.cpu().double()
+                           for k, v in state.batch_stats.items()})
+
+    f64, f32 = torch.float64, torch.float32
+    out = {"card64": step(card, f64), "cpu64": step("cpu", f64),
+           "card32": step(card, f32), "cpu32": step("cpu", f32),
+           "card64_moved": step(card, f64, inp=moved),
+           "card64_fault": step(card, f64, fault=True),
+           "card32_fault": step(card, f32, fault=True),
+           "card32_tf32": step(card, f32, tf32=True)}
+
+    def dist(run, ref):
+        g, r = out[run]["grads"], out[ref]["grads"]
+        l2 = {k: float((v - r[k]).norm() / r[k].norm().clamp_min(1e-30))
+              for k, v in g.items()}
+        worst = max(l2, key=l2.get)
+        return {
+            "loss_rel": abs(out[run]["loss"] - out[ref]["loss"])
+            / abs(out[ref]["loss"]),
+            "grad_of_leaf_max": max(
+                float((v - r[k]).abs().max()
+                      / r[k].abs().max().clamp_min(1e-30))
+                for k, v in g.items()),
+            "grad_l2_rel_worst": l2[worst], "worst_leaf": worst,
+            "grad_l2_rel_median": float(np.median(list(l2.values()))),
+            "stats": max(float((v - out[ref]["stats"][k]).abs().max()
+                               / max(float(out[ref]["stats"][k].abs().max()),
+                                     0.1))
+                         for k, v in out[run]["stats"].items())}
+
+    def over(d, budget):
+        return {k: d[k] for k in budget if d[k] > budget[k]}
+
+    rec = {"input_hw": list(hw),
+           "f64_card_vs_cpu": dist("card64", "cpu64"),
+           "f32_card_vs_cpu": dist("card32", "cpu32"),
+           "f32_cpu_vs_f64_cpu": dist("cpu32", "cpu64"),
+           "f32_card_vs_f64_cpu": dist("card32", "cpu64"),
+           "f64_card_moved_2e-24": dist("card64_moved", "card64"),
+           "fault_f64_card_vs_cpu": dist("card64_fault", "cpu64"),
+           "fault_f32_card_vs_cpu": dist("card32_fault", "cpu32"),
+           "tf32_card_vs_cpu": dist("card32_tf32", "cpu32"),
+           "fault_site": XC_FAULT_SITE, "budget_f64": XC_F64,
+           "loss": {k: v["loss"] for k, v in out.items()},
+           "step_seconds": {k: v["seconds"] for k, v in out.items()}}
+    bad = over(rec["f64_card_vs_cpu"], XC_F64)
+    if bad:
+        fail(f"Xception float64 train step at {hw} on the card vs the CPU: "
+             f"{bad} over {XC_F64}")
+    if not over(rec["fault_f64_card_vs_cpu"], XC_F64):
+        fail(f"the float64 gate does not see a fault at {XC_FAULT_SITE}: "
+             f"{rec['fault_f64_card_vs_cpu']}")
+    budget = {"loss_rel": TRAIN_F32["loss_rtol"],
+              "grad_of_leaf_max": TRAIN_F32["grad_of_leaf_max"],
+              "grad_l2_rel_worst": TRAIN_F32["grad_l2_rel"],
+              "grad_l2_rel_median": TRAIN_F32["grad_l2_rel"],
+              "stats": TRAIN_F32["stats"]}
+    cpu = rec["f32_cpu_vs_f64_cpu"]
+    rec["budget_f32"] = budget = {
+        k: max(v, XC_F32_FACTOR * cpu[k]) for k, v in budget.items()}
+    bad = over(rec["f32_card_vs_cpu"], budget)
+    if bad:
+        fail(f"Xception f32 train step at {hw} on the card vs the CPU: "
+             f"{bad} over {budget} (the CPU f32 vs float64: {cpu})")
+    for run in ("fault_f32_card_vs_cpu", "tf32_card_vs_cpu"):
+        rec[run.replace("card_vs_cpu", "over_budget")] = seen = over(
+            rec[run], budget)
+        if not seen:
+            fail(f"the f32 gate does not see {run}: {rec[run]} within "
+                 f"{budget}")
+    return rec
+
+
+def xception_train_serve(tree_path: str) -> dict:
+    """A trained Xception checkpoint served by ``deeplab_xception_fs`` and
+    ``deeplab_xception``: f32 grids equal, the bf16 gates, 55 kernel
+    launches a backbone forward; then the kernel against
+    ``sepconv_reference`` on the trained folded arguments at every site
+    shape of the path, on the activations a frame gives there."""
+    import numpy as np
+    import torch
+
+    import bugcar_image_segmentation_tpu_torch as port
+    from bugcar_image_segmentation_tpu_torch import synthetic
+    from bugcar_image_segmentation_tpu_torch.calibration import \
+        toy_calibration
+    from bugcar_image_segmentation_tpu_torch.models import preprocess as pre
+    from bugcar_image_segmentation_tpu_torch.ops import cuda as kcuda
+    from bugcar_image_segmentation_tpu_torch.ops.cuda import sepconv as sc
+    from bugcar_image_segmentation_tpu_torch.utils.checkpoint import \
+        load_variables
+
+    variables, cfg = load_variables(tree_path)
+    frames = [f for f, _, _ in synthetic.video(
+        seed=SEED + 1, num_frames=XC_SERVE_FRAMES, shape=FRAME_HW)]
+    grid_cfg = port.GridConfig(8.0, 8.0, 0.1)
+    cal = toy_calibration(XCEPTION_HW)
+    grids, labels, engines = {}, {}, {}
+    forwards = 0
+    kcuda.reset_launches()
+    for dt in ("float32", "bfloat16"):
+        for name in ("deeplab_xception_fs", "deeplab_xception"):
+            c = port.ModelConfig(name="deeplab_xception",
+                                 input_width=cfg.input_width,
+                                 input_height=cfg.input_height,
+                                 num_classes=cfg.num_classes, dtype=dt)
+            eng = engines[(name, dt)] = port.build_engine(
+                name, c, variables=variables)
+            pipe = port.Pipeline(eng, cal, grid_cfg)
+            grids[(name, dt)] = np.stack(list(pipe.stream(iter(frames),
+                                                          depth=2)))
+            labels[(name, dt)] = eng.predict(np.stack(frames)).cpu().numpy()
+            if name.endswith("_fs"):
+                forwards += backbone_calls(eng, len(frames), len(frames))
+    launches = dict(kcuda.LAUNCHES)
+    want = SEP_PER_FRAME * forwards
+    if launches["fused_sepconv"] != want or sum(launches.values()) != want:
+        fail(f"trained xception served: launches {launches}; expected "
+             f"{want} fused_sepconv ({forwards} forwards)")
+    check_grids("trained xception", {f"{n}/{d}": g for (n, d), g in
+                                     grids.items()},
+                (grid_cfg.cells_h, grid_cfg.cells_w))
+    f32_same = float((grids[("deeplab_xception_fs", "float32")]
+                      == grids[("deeplab_xception", "float32")]).mean())
+    f32_lab = float((labels[("deeplab_xception_fs", "float32")]
+                     == labels[("deeplab_xception", "float32")]).mean())
+    if f32_same < 1.0:
+        fail(f"trained Xception in f32: _fs grids differ from the plain "
+             f"engine's on {1 - f32_same} of the cells (labels agree on "
+             f"{f32_lab})")
+    cells = float((grids[("deeplab_xception_fs", "bfloat16")]
+                   == grids[("deeplab_xception", "bfloat16")]).mean())
+    lab = float((labels[("deeplab_xception_fs", "bfloat16")]
+                 == labels[("deeplab_xception", "bfloat16")]).mean())
+    if cells < AGREE_BF16 or lab < AGREE_BF16:
+        fail(f"trained Xception, _fs vs plain (bf16): labels {lab}, cells "
+             f"{cells} agree; budget {AGREE_BF16}")
+
+    # the kernel on the trained folded arguments, on the activations the
+    # first frame gives each site (the f32 engine's plain forward)
+    model = engines[("deeplab_xception", "float32")].module
+    names = {site: (f"{site}" if site != "middle" else "middle0.sep1")
+             for site, *_rest, per_frame in SEP_SITES if per_frame}
+    mods = dict(model.named_modules())
+    inputs = {}
+    hooks = [mods[m].register_forward_pre_hook(
+        lambda _m, a, site=site: inputs.setdefault(site, a[0].detach()))
+        for site, m in names.items()]
+    try:
+        with torch.no_grad():
+            model(pre.preprocess_for_config(
+                torch.as_tensor(frames[0][None], device="cuda"),
+                engines[("deeplab_xception", "float32")].cfg))
+    finally:
+        for h in hooks:
+            h.remove()
+    sites = []
+    worst = 0.0
+    for site, m in names.items():
+        mod = mods[m]
+        rec = {"site": site, "shape": list(inputs[site].shape[1:]) + [
+            mod.pointwise.weight.shape[0]], "stride": mod.stride}
+        for dt in (torch.float32, torch.bfloat16):
+            a = mod.fold(dt)
+            args = [a[k] for k in ("wdw", "s1", "b1", "wpw", "s2", "b2")]
+            x = inputs[site].to(dt).contiguous()
+            kw = dict(strides=mod.stride, act_out=mod.act_out)
+            got = sc.fused_sepconv(x, *args, **kw)
+            ref = sc.sepconv_reference(x, *args, **kw)
+            diff = (got.float() - ref.float()).abs()
+            atol, rtol = TOL[str(dt).split(".")[1]]
+            if not bool(torch.isfinite(got.float()).all()) or bool(
+                    (diff > atol + rtol * ref.float().abs()).any()):
+                fail(f"fused_sepconv on trained weights at {site} ({dt}): "
+                     f"max |err| {float(diff.max())} over {atol} + "
+                     f"{rtol}*|ref|")
+            rec[f"max_abs_err_{str(dt).split('.')[1]}"] = float(diff.max())
+            worst = max(worst, float(diff.max()))
+        sites.append(rec)
+    share = np.bincount(labels[("deeplab_xception", "float32")].ravel(),
+                        minlength=3) / labels[("deeplab_xception",
+                                               "float32")].size
+    return {"launches": launches, "backbone_forwards": forwards,
+            "f32_grid_cells_equal": f32_same, "f32_label_agree": f32_lab,
+            "bf16_cell_agree": cells, "bf16_label_agree": lab,
+            "f32_drivability_share": share.tolist(),
+            "trained_sites": sites, "trained_sites_max_abs_err": worst}
+
+
+def host_tools_on_card() -> dict:
+    """The cv2-free host tools on the card: ``compat.ENET()`` and
+    ``compat.DeepLabV3()`` with no ``.pb`` (seeded weights, warned),
+    ``bev_transform_tools`` against ``OccupancyGridBuilder``, and
+    ``scripts/torch_calibrate.py --corners`` whose JSON drives a
+    ``Pipeline``; TensorFlow, h5py and transformers stay unimported."""
+    import warnings
+
+    import numpy as np
+
+    import bugcar_image_segmentation_tpu_torch as port
+    from bugcar_image_segmentation_tpu_torch import compat, geometry, synthetic
+    from bugcar_image_segmentation_tpu_torch.calibration import \
+        toy_calibration
+    from bugcar_image_segmentation_tpu_torch.grid import OccupancyGridBuilder
+
+    frame, _ = synthetic.road_scene(np.random.default_rng(SEED), FRAME_HW)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        enet, dl = compat.ENET(), compat.DeepLabV3()
+    if sum("not found" in str(w.message) for w in caught) != 2:
+        fail(f"compat engines without a .pb: warnings "
+             f"{[str(w.message) for w in caught]}")
+    rec, segs = {}, {}
+    for name, eng in (("ENET", enet), ("DeepLabV3", dl)):
+        hw = (eng.engine.cfg.input_height, eng.engine.cfg.input_width)
+        x = eng.preprocess(frame)
+        if tuple(x.shape) != (1,) + hw + (3,) or x.device.type != "cuda":
+            fail(f"compat.{name}.preprocess gave {tuple(x.shape)} on "
+                 f"{x.device}")
+        seg = segs[name] = compat._FrozenGraphEngine.predict(eng, x)
+        road = eng.predict_binary(x)
+        served = eng.engine.predict(frame).cpu().numpy()
+        if (seg.shape != hw or seg.dtype != np.uint8 or road.shape != hw
+                or not set(np.unique(seg)) <= {0, 1, 2}
+                or not set(np.unique(road)) <= {0, 1}):
+            fail(f"compat.{name}: predict {seg.shape} {seg.dtype} "
+                 f"{np.unique(seg)}, predict_binary {road.shape} "
+                 f"{np.unique(road)}")
+        if not (seg == served).all():
+            fail(f"compat.{name}: preprocess -> predict differs from the "
+                 f"engine's predict on {(seg != served).mean()} of pixels")
+        rec[name] = {"input_hw": list(hw),
+                     "drivability_share": (np.bincount(
+                         seg.ravel(), minlength=3) / seg.size).tolist(),
+                     "road_share": float(road.mean())}
+    if not (dl.predict(frame) == segs["DeepLabV3"]).all():
+        fail("compat.DeepLabV3.predict(frame) differs from preprocess -> "
+             "predict")
+    cal = toy_calibration((256, 512))
+    grid = port.GridConfig(8.0, 8.0, 0.1)
+    tools = compat.bev_transform_tools(
+        cal.input_shape, cal.output_shape, cal.dist2target, cal.tile_length,
+        cal.cm_per_px, cal.yaw, matrix=cal.matrix_np())
+    for mode, call in (("multiclass", tools.create_occupancy_grid),
+                       ("binary", tools.create_occupancy_grid_binary)):
+        labels = (segs["ENET"] if mode == "multiclass"
+                  else enet.predict_binary(enet.preprocess(frame)))
+        got = call(labels, 8, 8, 0.1)
+        want = OccupancyGridBuilder(cal, grid, mode=mode)(labels)
+        if not (got == want.cpu().numpy()).all():
+            fail(f"bev_transform_tools {mode} grid differs from "
+                 f"OccupancyGridBuilder's")
+    w, h = cal.input_shape
+    tile = [[0.41 * w, 0.55 * h], [0.59 * w, 0.55 * h],
+            [0.64 * w, 0.72 * h], [0.36 * w, 0.73 * h]]
+    path = os.path.join("build", "xception_train_smoke", "calib.json")
+    code = load_script("torch_calibrate").main(
+        ["--corners", *[f"{x},{y}" for x, y in tile], "--input-size",
+         f"{w}x{h}", "--output-size", "256x256", "--dist2target", "2,60",
+         "--tile-length", "60", "--cm-per-px", "2", "--yaw",
+         str(cal.yaw), "--out", path])
+    cli_cal = port.CalibrationConfig.load_json(path)
+    want = port.BEVTransform(
+        cal.input_shape, cal.output_shape, cal.dist2target, cal.tile_length,
+        cal.cm_per_px, cal.yaw).calculate_transform_matrix(
+            geometry.order_corners_for_calibration(np.array(tile), cal.yaw))
+    if code or not np.array_equal(cli_cal.matrix_np(), want):
+        fail(f"torch_calibrate.py --corners: exit {code}, matrix "
+             f"{cli_cal.matrix_np()} vs the library's {want}")
+    g = port.Pipeline(enet.engine, cli_cal, grid)(frame).cpu().numpy()
+    check_grids("torch_calibrate.py's calibration", {"pipeline": g[None]},
+                (grid.cells_h, grid.cells_w))
+    offline = [m for m in ("tensorflow", "h5py", "transformers")
+               if m in sys.modules]
+    if offline:
+        fail(f"the host tools imported the offline converters' {offline}")
+    rec["calibrate_cli_grid_cells"] = {
+        str(v): int((g == v).sum()) for v in np.unique(g)}
+    return rec
+
+
+def xception_train_phase(smi: str) -> dict:
+    """The ``xception_train_path`` phase; returns the kernel launches of
+    serving the trained weights."""
+    import numpy as np
+    import torch
+
+    import bugcar_image_segmentation_tpu_torch as port
+    from bugcar_image_segmentation_tpu_torch import synthetic
+    from bugcar_image_segmentation_tpu_torch.convert.flax_tree import \
+        flax_variables
+    from bugcar_image_segmentation_tpu_torch.models.xception import \
+        Xception65DeepLab
+    from bugcar_image_segmentation_tpu_torch.utils.checkpoint import \
+        save_variables
+
+    t = time.perf_counter()
+    pairs = list(synthetic.dataset(SEED, XC_TRAIN_POOL, XCEPTION_HW))
+    frames = torch.as_tensor(np.stack([f for f, _ in pairs])).cuda()
+    labels = torch.as_tensor(np.stack([lb for _, lb in pairs])
+                             .astype(np.int64)).cuda()
+    setup_s = time.perf_counter() - t
+
+    model = Xception65DeepLab(15, fused_sepconv=True)
+    rec, _ = train_run(model, XCEPTION_HW, XC_TRAIN_BATCH, XC_TRAIN_STEPS,
+                       frames, labels, SEED)
+    path = os.path.join("build", "xception_train_smoke",
+                        "xception_trained.msgpack")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    save_variables(path, flax_variables(model), port.ModelConfig(
+        name="deeplab_xception", input_width=XCEPTION_HW[1],
+        input_height=XCEPTION_HW[0], num_classes=15))
+    del model
+    torch.cuda.empty_cache()
+    serve = xception_train_serve(path)
+    f32 = xception_step_card_vs_cpu(frames, labels)
+
+    bench = load_script("torch_bench_train")
+    t_bench = time.perf_counter()
+    runs = bench.run(bench.parse_args(
+        ["--models", "enet", "deeplab_xception", "--batches", "4",
+         "--iters", "2", "6"]))
+    if any("failed" in r for r in runs):
+        fail(f"scripts/torch_bench_train.py: {runs}")
+    bench_s = time.perf_counter() - t_bench
+    tools = host_tools_on_card()
+    emit("xception_train_path", seconds=round(time.perf_counter() - t, 3),
+         setup_seconds=round(setup_s, 3), xception=rec,
+         train_to_serve=serve, step_card_vs_cpu=f32,
+         bench_train={"seconds": round(bench_s, 3), "runs": runs},
+         host_tools=tools, nvidia_smi=smi)
     return serve["launches"]
 
 
@@ -2776,6 +3223,9 @@ def main() -> int:
     enet_entry["launches"] += fusion_phase(smi)["fused_bottleneck"]
     # the trained weights are served through the bottleneck kernel
     enet_entry["launches"] += train_phase(smi)["fused_bottleneck"]
+    # and the trained Xception's through the sepconv kernel
+    xc_launches["fused_sepconv"] += xception_train_phase(smi)[
+        "fused_sepconv"]
     # the artifacts and the serving CLIs run rows 1-4
     for launches in (deploy_phase(smi), serve_cli_phase(smi)):
         enet_entry["launches"] += launches.get("fused_bottleneck", 0)

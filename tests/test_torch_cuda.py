@@ -421,7 +421,8 @@ def test_sepconv_kernel_matches_plain(dev, shape, dtype):
 
 
 @pytest.mark.parametrize("bad", ["half", "noncontig", "oddh", "stride3",
-                                 "wdevice", "wdtype", "wshape"])
+                                 "wdevice", "wdtype", "wshape", "grad",
+                                 "wgrad"])
 def test_sepconv_wrapper_rejects(dev, bad):
     from bugcar_image_segmentation_tpu_torch.ops.cuda.sepconv import \
         fused_sepconv
@@ -442,6 +443,10 @@ def test_sepconv_wrapper_rejects(dev, bad):
         args[0] = args[0].double()
     elif bad == "wshape":
         args[3] = args[3][:, :8].contiguous()
+    elif bad == "grad":      # the kernel has no backward
+        x.requires_grad_()
+    elif bad == "wgrad":
+        args[1].requires_grad_()
     before = kcuda.LAUNCHES["fused_sepconv"]
     with pytest.raises(ValueError):
         fused_sepconv(x, *args, strides=stride)

@@ -124,9 +124,9 @@ def test_ring_builds_under_build_dir():
     assert path.parent == REPO / "build" / "native"
     assert path == tring.library_path() and path.exists()
     assert path.name.startswith("libframe_ring-")
-    # nothing is written beside the source
+    # nothing is written beside the source (and its TSAN harness)
     assert sorted(p.name for p in tring.SOURCE.parent.iterdir()) == \
-        ["frame_ring.cpp"]
+        ["frame_ring.cpp", "frame_ring_test.cpp"]
 
 
 @pytest.mark.parametrize("shape,n", [((8, 8, 3), 3), ((480, 640, 3), 4),

@@ -40,7 +40,8 @@ from bugcar_image_segmentation_tpu_torch.convert.flax_enet import \
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "bugcar_image_segmentation_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "cv2", "msgpack",
-             "tensorflow", "bugcar_image_segmentation_tpu")
+             "tensorflow", "h5py", "transformers",
+             "bugcar_image_segmentation_tpu")
 # Modules of the later slices, named so that the poisoned import below
 # cannot miss one.
 SLICE_MODULES = ("ops.cuda.attention", "models.segformer",
@@ -54,7 +55,13 @@ SLICE_MODULES = ("ops.cuda.attention", "models.segformer",
                  "training.trainer", "training.augment", "parallel.mesh",
                  "io.ring", "io.sources", "io.health", "ops.cuda.library",
                  "deploy", "utils.profiling", "parallel.halo",
-                 "parallel.multicam", "parallel.tp", "parallel.spatial")
+                 "parallel.multicam", "parallel.tp", "parallel.spatial",
+                 "convert.tf_graphdef", "convert.keras_h5", "convert.tf_enet",
+                 "convert.tf_xception", "convert.torch_segformer", "compat")
+# The host CLIs, run as modules (their definitions, not their main) with
+# the GPU host's absentees poisoned.
+SLICE_SCRIPTS = ("torch_train", "torch_calibrate", "torch_test_straight_line",
+                 "torch_evaluate_model", "torch_demo", "torch_bench_train")
 GRID = (4.0, 4.0, 0.2)
 MODEL = dict(input_width=64, input_height=32, dtype="float32")
 
@@ -255,13 +262,23 @@ EDGES = {PORT / "msg.py": ROS_EDGE,
          REPO / "scripts" / "torch_train.py": {"cv2"},
          PORT / "io" / "sources.py": {"cv2"},
          PORT / "utils" / "__init__.py": {"cv2"},
-         REPO / "scripts" / "torch_inference_video.py": {"cv2"}}
+         REPO / "scripts" / "torch_inference_video.py": {"cv2"},
+         # the offline converters' tools, imported by the functions
+         PORT / "convert" / "tf_graphdef.py": {"tensorflow"},
+         PORT / "convert" / "tf_enet.py": {"tensorflow"},
+         PORT / "convert" / "keras_h5.py": {"h5py"},
+         PORT / "convert" / "torch_segformer.py": {"transformers"},
+         REPO / "scripts" / "torch_calibrate.py": {"cv2"},
+         REPO / "scripts" / "torch_test_straight_line.py": {"cv2"},
+         REPO / "scripts" / "torch_demo.py": {"cv2"},
+         REPO / "scripts" / "torch_evaluate_model.py": {"torch_train"}}
 
 
 def test_port_and_smoke_import_only_what_the_gpu_host_has():
     """Every import in the port, chip_smoke.py and scripts/torch_*.py
     names the stdlib, torch, numpy, scipy, einops or the port itself (and
-    msg.py's lazy ROS edge, torch_train.py's lazy cv2 edge)."""
+    msg.py's lazy ROS edge, the scripts' lazy cv2 edges, the converters'
+    lazy TensorFlow, h5py and transformers)."""
     allowed = set(sys.stdlib_module_names) | {
         "torch", "numpy", "scipy", "einops",
         "bugcar_image_segmentation_tpu_torch"}
@@ -287,7 +304,8 @@ for m in {SLICE_MODULES!r}:
     assert "bugcar_image_segmentation_tpu_torch." + m in mods, m
 import chip_smoke
 import runpy
-runpy.run_path("scripts/torch_train.py", run_name="torch_train")
+for script in {SLICE_SCRIPTS!r}:
+    runpy.run_path(f"scripts/{{script}}.py", run_name=script)
 leaked = [m for m in sys.modules if sys.modules[m] is not None
           and m.split(".")[0] in {FORBIDDEN!r}]
 assert not leaked, leaked
