@@ -142,34 +142,6 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid
                "r"(valid ? 4 : 0)
                : "memory");
 }
-// Orders this thread's generic-proxy shared-memory writes (st.shared,
-// cp.async) before the async proxy's reads (wgmma).
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async;\n" ::: "memory");
-}
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-// Wait for the phase of the given parity to complete.  A copy that never
-// lands (a fault in the tensor map or the plan) traps after ~2^26 polls
-// -- seconds -- so the launch fails instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  for (uint32_t polls = 0;; ++polls) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (polls == (1u << 26)) __trap();
-  }
-}
 // One TMA box (64 F x 64 K of the weights) into shared memory, completing
 // on the mbarrier; out-of-range elements arrive as zeros.
 __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int f, int k,
@@ -272,7 +244,7 @@ sepconv_bf16(const __nv_bfloat16* __restrict__ x, const float* __restrict__ taps
   // reads, no register or load-unit traffic, zeros past C and F.
   // Otherwise every thread stores it element by element.
   if (pl.vec && tid == 0) {
-    for (int s = 0; s < stages; ++s) mbar_init(bars_s + 8 * s);
+    for (int s = 0; s < stages; ++s) mbar_init(bars_s + 8 * s, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -673,26 +645,11 @@ sepconv_f32(const float* __restrict__ x, const float* __restrict__ taps,
   }
 }
 
-// cuTensorMapEncodeTiled, looked up once through the runtime's entry-point
-// query (the library does not link against libcuda).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
 // The TMA map of the (C, F) bf16 weights: boxes of 64 F x 64 K, 128-byte
 // swizzle.
 cudaError_t weight_map(CUtensorMap* map, const void* wpw, int c, int f) {
-  static EncodeTiled encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-    if (err != cudaSuccess) return err;
-    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
-    encode = reinterpret_cast<EncodeTiled>(fn);
-  }
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {(cuuint64_t)f, (cuuint64_t)c};
   const cuuint64_t strides[1] = {(cuuint64_t)f * 2};
   const cuuint32_t box[2] = {64, kKStep};

@@ -1,9 +1,11 @@
 // PTX helpers shared by the port's tensor-core kernels (sm_90a): shared
-// memory addresses, cp.async, ldmatrix, ex2 and mma.sync.  Included by the
-// .cu sources beside it; ops/cuda/build.py hashes it with them.
+// memory addresses, cp.async, ldmatrix, ex2, mma.sync, mbarriers, the
+// async-proxy fence and the TMA tensor-map encoder.  Included by the .cu
+// sources beside it; ops/cuda/build.py hashes it with them.
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -61,6 +63,57 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Orders this thread's generic-proxy shared-memory writes (st.shared,
+// cp.async) before the async proxy's accesses (wgmma, TMA).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// Wait for the phase of the given parity to complete.  A copy that never
+// lands (a fault in the tensor map or the plan) traps after ~2^26 polls
+// -- seconds -- so the launch fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  for (uint32_t polls = 0;; ++polls) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls == (1u << 26)) __trap();
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up once through the runtime's entry-point
+// query (the library does not link against libcuda); nullptr if missing.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  return encode;
 }
 
 }  // namespace

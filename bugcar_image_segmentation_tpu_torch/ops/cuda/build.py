@@ -136,11 +136,12 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = [_P] * 4 + [_I] * 4 + [ctypes.c_float, _I, _P]
             fn.restype = _I
-        lib.bugcar_flash_attention_rows.argtypes = [_I] * 4
-        lib.bugcar_flash_attention_rows.restype = _I
-        lib.bugcar_flash_attention_bf16_rows.argtypes = (
-            [_P] * 4 + [_I] * 4 + [ctypes.c_float, _I, _I, _P])
-        lib.bugcar_flash_attention_bf16_rows.restype = _I
+        lib.bugcar_flash_attention_plan.argtypes = (
+            [_I] * 3 + [ctypes.POINTER(ctypes.c_int)])
+        lib.bugcar_flash_attention_plan.restype = _I
+        lib.bugcar_flash_attention_bf16_plan.argtypes = (
+            [_P] * 4 + [_I] * 4 + [ctypes.c_float, _I, _I, _I, _P])
+        lib.bugcar_flash_attention_bf16_plan.restype = _I
         lib.bugcar_fused_sepconv.argtypes = [_P] * 8 + [_I] * 11 + [_P]
         lib.bugcar_fused_sepconv.restype = _I
         lib.bugcar_fused_sepconv_max_clusters.argtypes = [_I, _I, _I]

@@ -36,8 +36,10 @@ phase with its elapsed seconds:
    Nkv = 4096 shape, each held against ``attention_reference`` in
    bfloat16 and in float32 (TF32 off), and timed with CUDA events beside
    the plain version and ``torch.nn.functional.scaled_dot_product_attention``
-   (a yardstick, never on the path); each bf16 record carries its launch
-   plan (queries and threads a CTA, CTAs).
+   (a yardstick, never on the path; for ``flash_attention_t`` also on
+   token-major copies, ``library_token_major_ms``); each bf16 record
+   carries its launch plan (queries, ring stages, threads and shared
+   memory a CTA, CTAs).
 6. ``segformer_path`` — ``build_engine("segformer_b0")`` (MiT-B0 at
    1024x1024, 15 classes, bf16, seeded weights) and ``Pipeline``:
    ``pipe(frame)``, ``pipe.stream(frames, depth=2)``, a 4-frame batch, and
@@ -204,6 +206,7 @@ exit (faulthandler).
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import faulthandler
 import importlib.util
 import json
@@ -909,20 +912,29 @@ def attention_phase(lib, clock_hz: float) -> dict:
                         v.transpose(-1, -2))
                     if name == "flash_attention_t"
                     else F.scaled_dot_product_attention(q, k, v), iters)
+                if name == "flash_attention_t":
+                    # SDPA on token-major copies (made outside the timing):
+                    # its fast layout, the fair yardstick
+                    tm = [x.transpose(-1, -2).contiguous() for x in (q, k, v)]
+                    rec["library_token_major_ms"] = cuda_ms(
+                        lambda: F.scaled_dot_product_attention(*tm), iters)
                 rec.update(attention_bound(shape, dt, clock_hz))
-                rows = lib.bugcar_flash_attention_rows(
-                    nq, d, 1, int(name == "flash_attention_t"))
-                rec["plan"] = {"kernel": "flash_attention_mma",
-                               "queries_per_cta": rows,
-                               "ctas": -(-nq // rows) * b * h,
-                               "threads": 2 * rows}
+                plan = (ctypes.c_int * 5)()
+                lib.bugcar_flash_attention_plan(nq, d, 1, plan)
+                rec["plan"] = {"kernel": "flash_attention_wgmma",
+                               "queries_per_cta": plan[0],
+                               "ring_stages": plan[1], "key_tile": plan[4],
+                               "ctas": -(-nq // plan[0]) * b * h,
+                               "threads": plan[2], "smem_bytes": plan[3]}
             records[name, shape] = rec
             print(json.dumps({"phase": "attention_case", **rec}), flush=True)
     # B2 (d = 64), the kernel of each stage's layout: token-major for the
     # one head of stage 0, channel-major for stages 1-3
     b2 = [{k: records[name, shape][k] for k in (
-        "kernel", "shape", "ms", "plain_ms", "library_ms", "bound_ms",
-        "bound_by", "max_abs_err_float32", "max_abs_err_bfloat16")}
+        "kernel", "shape", "ms", "plain_ms", "library_ms",
+        "library_token_major_ms", "bound_ms", "bound_by",
+        "max_abs_err_float32", "max_abs_err_bfloat16")
+        if k in records[name, shape]}
           for name, shape in zip(["flash_attention"]
                                  + ["flash_attention_t"] * 3,
                                  ATTN_B2_STAGES)]

@@ -143,9 +143,10 @@ def _xception_stages(eng, pipe, stage, frame):
 
 
 # Device-time names of the port's hand-written kernels, by path (the
-# attention source's tensor-core and SIMT kernels; the sepconv's bf16 and
-# f32 kernels; the bottleneck's bf16 and f32 kernels).
-KERNEL_NAMES = {"segformer_b0": ("flash_attention_mma", "flash_attention_simt"),
+# attention source's wgmma and SIMT kernels; the sepconv's bf16 and f32
+# kernels; the bottleneck's bf16 and f32 kernels).
+KERNEL_NAMES = {"segformer_b0": ("flash_attention_wgmma",
+                                 "flash_attention_simt"),
                 "deeplab_xception": ("sepconv_bf16", "sepconv_f32"),
                 "enet": ("fused_bottleneck_mma", "fused_bottleneck_tile")}
 

@@ -8,9 +8,12 @@ from the root of a checkout, on a host with the CUDA toolkit.  It builds
 disassembles it with ``cuobjdump -sass`` and prints one JSON line per
 kernel instance: its name and the count of each instruction class that
 says which units it uses -- HMMA (mma.sync on the tensor cores), HGMMA
-(wgmma), LDSM (ldmatrix), LDGSTS (cp.async), UTMALDG (TMA loads), FFMA
-(f32 FMA), MUFU (special-function unit: ex2 and others).  Exits non-zero
-without cuobjdump.
+(wgmma), LDSM (ldmatrix), LDGSTS (cp.async), UTMALDG / UTMASTG (TMA loads
+/ stores), FFMA (f32 FMA), MUFU (special-function unit: ex2 and others),
+STL / LDL (local memory: register spills).  A last line checks the bf16
+attention kernel (``flash_attention_wgmma``): every instance has HGMMA
+and UTMALDG and no HMMA.  Exits non-zero without cuobjdump or when that
+check fails.
 """
 
 from __future__ import annotations
@@ -27,7 +30,8 @@ from pathlib import Path
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-OPS = ("HMMA", "HGMMA", "LDSM", "LDGSTS", "UTMALDG", "FFMA", "MUFU")
+OPS = ("HMMA", "HGMMA", "LDSM", "LDGSTS", "UTMALDG", "UTMASTG", "FFMA", "MUFU",
+       "STL", "LDL")
 
 
 def cuobjdump() -> str:
@@ -67,7 +71,12 @@ def main() -> int:
     names = demangle([n for n, _ in found])
     for readable, (_, ops) in zip(names, found):
         print(json.dumps({"kernel": readable[:160], **ops}), flush=True)
-    return 0
+    attn = [ops for (name, ops) in found if "flash_attention_wgmma" in name]
+    ok = bool(attn) and all(o["HGMMA"] > 0 and o["UTMALDG"] > 0
+                            and o["HMMA"] == 0 for o in attn)
+    print(json.dumps({"check": "flash_attention_wgmma", "instances": len(attn),
+                      "hgmma_and_utmaldg_no_hmma": ok}), flush=True)
+    return 0 if ok else 1
 
 
 def demangle(names):

@@ -1,20 +1,24 @@
 """The arithmetic of the tensor-core flash attention (``csrc/flash_attention.cu``,
-``flash_attention_mma``: bf16, token-major and channel-major), emulated in
+``flash_attention_wgmma``: bf16, token-major and channel-major), emulated in
 torch on the CPU.
 
 The kernel itself runs only on the card (tests/test_torch_cuda.py).  This
-file holds its arithmetic -- 64-key tiles, an online softmax with exp2 on
-``s * scale * log2 e``, P split into bf16 ``P_hi + P_lo`` for two products
-into one f32 accumulator, one cast at the end -- against the plain version
-(``attention_reference``) under chip_smoke.py's bf16 budget, |got - ref| <=
-1e-5 + 2^-7 |ref| (one output ulp: both compute in f32 from the same bf16
-operands and round once), and against the JAX Pallas ``flash_attention``
-in interpret mode at one small shape.  It also pins why P is split: with a
-single bf16 P the same loop breaks the budget wherever the output is near 0.
-The channel-major kernel (``flash_attention_t``) runs the same loop on
-[channel][token] tiles, so the same emulation on transposed operands is
-held against ``attention_reference_t`` and against the Pallas
-``flash_attention_t`` in both its single-pass and its blocked regime.
+file holds its arithmetic -- K/V tiles of 64 keys (the kernel's
+``kKeys``), an online softmax with exp2 on ``s * scale * log2 e``, P split
+into bf16 ``P_hi + P_lo`` for two products into one f32 accumulator, one
+cast at the end -- against the plain version (``attention_reference``)
+under chip_smoke.py's bf16 budget, |got - ref| <= 1e-5 + 2^-7 |ref| (one
+output ulp: both compute in f32 from the same bf16 operands and round
+once), and against the JAX Pallas ``flash_attention`` in interpret mode.
+It also pins why P is split: with a single bf16 P the same loop breaks the
+budget wherever the output is near 0.  The channel-major kernel
+(``flash_attention_t``) runs the same loop on [channel][token] tiles, so
+the same emulation on transposed operands is held against
+``attention_reference_t`` and against the Pallas ``flash_attention_t`` in
+both its single-pass and its blocked regime.  The ``test_wgmma_*`` cases
+widen the coverage to the shapes the wgmma kernel's card tests take (both
+head dims in both layouts, ragged last tiles, several tiles of extreme
+or saturated scores).
 """
 
 import math
@@ -28,7 +32,7 @@ from bugcar_image_segmentation_tpu.ops.pallas import attention as jatt
 from bugcar_image_segmentation_tpu_torch.ops.cuda import attention as att
 
 ATOL, RTOL = 1e-5, 2 ** -7      # chip_smoke.py ATTN_TOL["bfloat16"]
-TILE = 64                       # keys per shared-memory tile
+TILE = 64                       # keys per K/V tile (the kernel's kKeys)
 LOG2E = 1.4426950408889634
 
 
@@ -177,6 +181,115 @@ def test_emulation_t_matches_pallas_interpret(block_kv):
     its single-pass kernel) or blocks of 32 keys (its online-softmax
     kernel), against the emulation under the same budget."""
     q, k, v = _qkv_t(1, 2, 128, 96, 32, seed=4)
+    want = np.asarray(jatt.flash_attention_t(
+        *(jnp.asarray(t.float().numpy()) for t in (q, k, v)),
+        block_q=64, block_kv=block_kv))
+    got = emulate_t(q, k, v).float().numpy()
+    assert (np.abs(got - want) <= ATOL + RTOL * np.abs(want)).all()
+
+
+# -- the wgmma kernel's card-test shapes --------------------------------------
+
+
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("nkv", [1, 37, 130, 1000])
+@pytest.mark.parametrize("nq", [1, 100, 130])
+def test_wgmma_within_budget(nq, nkv, d):
+    """Ragged Nq and Nkv (a last tile of 1, 37, 2 or 40 keys), both head
+    dims."""
+    q, k, v = _qkv(2, 3, nq, nkv, d, seed=nq * 5 + nkv + d)
+    share, err = _over(emulate(q, k, v), att.attention_reference(q, k, v))
+    assert share == 0.0, (share, err)
+
+
+@pytest.mark.parametrize("d", [32, 64])
+def test_wgmma_within_budget_at_segformer_stage(d):
+    """Stage 0's shape cut to 4096 queries at B0's head dim and B2's,
+    seeded normal bf16 operands as chip_smoke.py makes them."""
+    q, k, v = _qkv(1, 1, 4096, 1024, d, seed=0)
+    share, err = _over(emulate(q, k, v), att.attention_reference(q, k, v))
+    assert share == 0.0, (share, err)
+    assert err < 2 ** -9
+
+
+@pytest.mark.parametrize("p_dtype,least", [(torch.bfloat16, 0.05),
+                                           (torch.float16, 0.001)],
+                         ids=["bf16", "fp16"])
+def test_wgmma_single_p_breaks_the_budget_at_d64(p_dtype, least):
+    """The split is needed at B2's head dim too: one P of bf16 (or fp16)
+    misses the one-ulp budget on a measurable share of stage 0's
+    outputs."""
+    q, k, v = _qkv(1, 1, 4096, 1024, 64, seed=0)
+    share, _ = _over(emulate(q, k, v, split_p=False, p_dtype=p_dtype),
+                     att.attention_reference(q, k, v))
+    assert share > least, share
+
+
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("scale", [8.0, 30.0])
+def test_wgmma_extreme_logits(scale, d):
+    """Scores in the hundreds to thousands across four tiles (the last
+    ragged): every exp stays finite, within the budget."""
+    q, k, v = _qkv(1, 2, 70, 200, d, seed=6, scale=math.sqrt(scale))
+    got = emulate(q, k, v)
+    assert bool(torch.isfinite(got.float()).all())
+    share, err = _over(got, att.attention_reference(q, k, v))
+    assert share == 0.0, (share, err)
+
+
+@pytest.mark.parametrize("nkv", [64, 256], ids=["one-tile", "four-tiles"])
+def test_wgmma_saturated_softmax(nkv):
+    """All the weight on the first half of the keys (half a tile, or the
+    first two tiles), values 1: exactly 1."""
+    q = torch.full((1, 1, 64, 32), 30.0).bfloat16()
+    k = torch.cat([torch.full((1, 1, nkv // 2, 32), 30.0),
+                   torch.full((1, 1, nkv // 2, 32), -30.0)], dim=2).bfloat16()
+    v = torch.ones(1, 1, nkv, 32).bfloat16()
+    assert torch.equal(emulate(q, k, v), torch.ones(1, 1, 64, 32).bfloat16())
+
+
+@pytest.mark.parametrize("nkv,block_kv", [(96, 32), (300, 64)],
+                         ids=["two-tiles", "five-tiles"])
+def test_wgmma_matches_pallas_interpret(nkv, block_kv):
+    """The JAX package's Pallas kernel (interpret mode, f32 operands that are
+    bf16 values) against the emulation over ragged tiles, under the same
+    budget."""
+    q, k, v = _qkv(2, 2, 128, nkv, 32, seed=7)
+    want = np.asarray(jatt.flash_attention(
+        *(jnp.asarray(t.float().numpy()) for t in (q, k, v)),
+        block_q=64, block_kv=block_kv))
+    got = emulate(q, k, v).float().numpy()
+    assert (np.abs(got - want) <= ATOL + RTOL * np.abs(want)).all()
+
+
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("nkv", [1, 37, 1000])
+@pytest.mark.parametrize("nq", [1, 100, 130])
+def test_wgmma_t_within_budget_ragged(nq, nkv, d):
+    """Channel-major at ragged Nq and Nkv (not multiples of 8: the kernel's
+    producer loads those tiles element by element), both head dims."""
+    q, k, v = _qkv_t(2, 3, nq, nkv, d, seed=nq + 3 * nkv + d)
+    share, err = _over(emulate_t(q, k, v), att.attention_reference_t(q, k, v))
+    assert share == 0.0, (share, err)
+
+
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("h,nq", [(2, 2048), (5, 1024), (8, 512)],
+                         ids=["stage1", "stage2", "stage3"])
+def test_wgmma_t_within_budget_at_segformer_stages(h, nq, d):
+    """SegFormer's stages 1-3 (heads 2 / 5 / 8, 1024 keys) with the queries
+    cut 8x / 4x / 2x, at B0's head dim and B2's."""
+    q, k, v = _qkv_t(1, h, nq, 1024, d, seed=h + d)
+    share, err = _over(emulate_t(q, k, v), att.attention_reference_t(q, k, v))
+    assert share == 0.0, (share, err)
+    assert err < 2 ** -9
+
+
+@pytest.mark.parametrize("block_kv", [None, 32], ids=["single-pass", "blocked"])
+def test_wgmma_t_matches_pallas_interpret(block_kv):
+    """The channel-major Pallas kernel in both regimes against the
+    emulation on 300 keys (a ragged fifth tile)."""
+    q, k, v = _qkv_t(1, 2, 128, 300, 32, seed=8)
     want = np.asarray(jatt.flash_attention_t(
         *(jnp.asarray(t.float().numpy()) for t in (q, k, v)),
         block_q=64, block_kv=block_kv))

@@ -455,8 +455,8 @@ def test_sepconv_wrapper_rejects(dev, bad):
 
 # -- the redesigned bf16 kernels: ragged ends, batch invariance, the sites --
 #
-# flash_attention's bf16 token-major path runs on the tensor cores (64 or,
-# for one head with >= 33,792 queries, 128 queries a CTA); fused_sepconv's
+# flash_attention's bf16 path runs on wgmma with TMA loads (64 queries a
+# consumer warpgroup, one or two a CTA by the plan); fused_sepconv's
 # bf16 path on wgmma (8-row tiles) or mma.sync (4-row tiles, wide C), with
 # the launch plan of ops/cuda/sepconv.plan.
 
@@ -485,8 +485,11 @@ def test_attention_mma_ragged(dev, shape):
 @pytest.mark.parametrize("shape", [(4, 1, 4096, 1024, 32),
                                    (4, 1, 33850, 256, 32),
                                    (4, 2, 1000, 77, 64),
-                                   (4, 8, 1024, 1024, 32)],
-                         ids=["64rows", "128rows", "d64", "stage3"])
+                                   (4, 8, 1024, 1024, 32),
+                                   (4, 2, 100, 37, 32),
+                                   (4, 1, 16384, 300, 64)],
+                         ids=["64rows", "128rows", "d64", "stage3", "ragged",
+                              "two-consumers-d64"])
 @pytest.mark.parametrize("name", ["flash_attention", "flash_attention_t"])
 def test_attention_frame_alone_equals_frame_in_batch(dev, name, shape):
     """bf16: a frame's output alone and inside a batch of 4 are bit-equal."""
@@ -501,9 +504,9 @@ def test_attention_frame_alone_equals_frame_in_batch(dev, name, shape):
     assert torch.equal(alone, batch[:1])
 
 
-# flash_attention_t's bf16 path runs the same tensor-core kernel on
-# channel-major tiles: 16-byte vectors where Nq and Nkv are multiples of 8,
-# element by element otherwise; 32, 64 or 128 queries a CTA.
+# flash_attention_t's bf16 path runs the same kernel on channel-major
+# tiles: TMA boxes where Nq and Nkv are multiples of 8, element by element
+# otherwise; 64 or 128 queries a CTA.
 
 @pytest.mark.parametrize("shape", MMA_SHAPES + [(2, 3, 1000, 77, 64),
                                                 (1, 2, 130, 1, 32),
@@ -534,30 +537,97 @@ def test_attention_t_mma_ragged(dev, shape):
 @pytest.mark.parametrize("channel_major", [False, True],
                          ids=["token", "channel"])
 def test_attention_widths_bit_equal(dev, shape, channel_major):
-    """Every CTA width (32, 64 and, at d = 32, 128 queries) gives the same
-    bits: a query row runs the same instructions whatever the plan."""
+    """Every plan (64 or 128 queries a CTA: one or two consumer warpgroups;
+    2, 3 or 4 ring stages) gives the same bits: a query row runs the same
+    instructions whatever the plan."""
+    q, k, v = _qkv(shape, torch.bfloat16, dev, seed=14)
+    if channel_major:
+        q, k, v = (x.transpose(-1, -2).contiguous() for x in (q, k, v))
+    outs = [_attention_plan(q, k, v, channel_major, rows, stages)
+            for rows in (64, 128) for stages in (2, 3, 4)]
+    torch.cuda.synchronize()
+    for out in outs[1:]:
+        assert torch.equal(out, outs[0])
+
+
+def _attention_plan(q, k, v, channel_major, rows, stages):
+    """The bf16 kernel at a forced plan, through its measurement entry."""
     import ctypes
     import math
 
     from bugcar_image_segmentation_tpu_torch.ops.cuda import build
-    b, h, nq, nkv, d = shape
-    q, k, v = _qkv(shape, torch.bfloat16, dev, seed=14)
     if channel_major:
+        b, h, d, nq = q.shape
+        nkv = k.shape[3]
+    else:
+        b, h, nq, d = q.shape
+        nkv = k.shape[2]
+    out = torch.empty_like(q)
+    err = build.library().bugcar_flash_attention_bf16_plan(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, nq,
+        nkv, d, ctypes.c_float(1.0 / math.sqrt(d)), int(channel_major), rows,
+        stages, torch.cuda.current_stream().cuda_stream)
+    build.check(err, f"plan {rows} queries / {stages} stages")
+    return out
+
+
+# Every (Nq, Nkv) pair of {1, 37, 100, 130, 1000} at both head dims in both
+# layouts: a ragged last K/V tile (1, 37, 100 or 2 and 104 of 128 keys),
+# queries past Nq, and channel-major rows that are not 16-byte multiples
+# (Nq or Nkv not a multiple of 8: the producer's element-by-element loads).
+ATTN_EDGES = [1, 37, 100, 130, 1000]
+
+
+@pytest.mark.parametrize("nkv", ATTN_EDGES)
+@pytest.mark.parametrize("nq", ATTN_EDGES)
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("name", ["flash_attention", "flash_attention_t"])
+def test_attention_wgmma_edges(dev, name, d, nq, nkv):
+    """bf16 against the plain version (one ulp) at ragged sizes, and the
+    same bits from one and two consumer warpgroups a CTA."""
+    from bugcar_image_segmentation_tpu_torch.ops.cuda import attention as att
+    cm = name == "flash_attention_t"
+    q, k, v = _qkv((2, 3, nq, nkv, d), torch.bfloat16, dev, seed=nq + nkv + d)
+    if cm:
         q, k, v = (x.transpose(-1, -2).contiguous() for x in (q, k, v))
-    lib = build.library()
-    outs = []
-    for rows in (32, 64, 128) if d == 32 else (32, 64):
-        out = torch.empty_like(q)
-        err = lib.bugcar_flash_attention_bf16_rows(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h,
-            nq, nkv, d, ctypes.c_float(1.0 / math.sqrt(d)),
-            int(channel_major), rows,
-            torch.cuda.current_stream().cuda_stream)
-        build.check(err, f"rows {rows}")
-        outs.append(out)
+    before = kcuda.LAUNCHES[name]
+    got = getattr(att, name)(q, k, v)
+    assert kcuda.LAUNCHES[name] == before + 1
+    ref = (att.attention_reference_t if cm else att.attention_reference)(q, k, v)
+    plans = [_attention_plan(q, k, v, cm, rows, 2) for rows in (64, 128)]
     torch.cuda.synchronize()
-    for out in outs[1:]:
-        assert torch.equal(out, outs[0])
+    atol, rtol = ATTN_TOL[torch.bfloat16]
+    diff = (got.float() - ref.float()).abs()
+    assert bool((diff <= atol + rtol * ref.float().abs()).all()), \
+        float(diff.max())
+    assert torch.equal(plans[0], got) and torch.equal(plans[1], got)
+
+
+def _misaligned(x):
+    """x's values in a contiguous tensor whose data starts 2 bytes past a
+    16-byte boundary (no TMA: element-by-element loads and stores)."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    y = buf[1:].view(x.shape)
+    y.copy_(x)
+    return y
+
+
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("name", ["flash_attention", "flash_attention_t"])
+def test_attention_unaligned_operands(dev, name, d):
+    """Operands off 16-byte alignment launch the same kernel and give the
+    bits of the aligned (TMA) launch."""
+    from bugcar_image_segmentation_tpu_torch.ops.cuda import attention as att
+    q, k, v = _qkv((1, 2, 1000, 256, d), torch.bfloat16, dev, seed=15)
+    if name == "flash_attention_t":
+        q, k, v = (x.transpose(-1, -2).contiguous() for x in (q, k, v))
+    fn = getattr(att, name)
+    aligned = fn(q, k, v)
+    mq, mk, mv = (_misaligned(x) for x in (q, k, v))
+    assert mq.data_ptr() % 16 == 2 and mq.is_contiguous()
+    got = fn(mq, mk, mv)
+    torch.cuda.synchronize()
+    assert torch.equal(got, aligned)
 
 
 def _smoke_sites():
