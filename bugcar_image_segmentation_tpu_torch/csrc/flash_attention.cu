@@ -410,29 +410,6 @@ __device__ __forceinline__ void bar_arrive(int id, int n) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
-// One TMA box into shared memory, completing on the mbarrier; elements
-// out of range arrive as zeros.
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
-                                            int c2, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
-      : "memory");
-}
-// One TMA box from shared memory (elements out of range are not written);
-// returns once the box has been read.
-__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src, int c0, int c1,
-                                             int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
-          reinterpret_cast<uint64_t>(map)),
-      "r"(src), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-
 // f32 (p0, p1) as two bf16 pairs, hi = bf16(p) and lo = bf16(p - hi).
 __device__ __forceinline__ void split_bf16(float p0, float p1, uint32_t& hi, uint32_t& lo) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);

@@ -1,7 +1,8 @@
-// PTX helpers shared by the port's tensor-core kernels (sm_90a): shared
-// memory addresses, cp.async, ldmatrix, ex2, mma.sync, mbarriers, the
-// async-proxy fence and the TMA tensor-map encoder.  Included by the .cu
-// sources beside it; ops/cuda/build.py hashes it with them.
+// PTX helpers shared by the port's kernels (sm_90a): shared memory
+// addresses, cp.async, ldmatrix, ex2, mma.sync, mbarriers, the async-proxy
+// fence, 3-D TMA loads and stores and the TMA tensor-map encoder.
+// Included by the .cu sources beside it; ops/cuda/build.py hashes it with
+// them.
 
 #pragma once
 
@@ -95,6 +96,29 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
     if (done) return;
     if (polls == (1u << 26)) __trap();
   }
+}
+
+// One TMA box into shared memory, completing on the mbarrier; elements
+// out of range arrive as zeros.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
+}
+// One TMA box from shared memory (elements out of range are not written);
+// returns once the box has been read.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
 // cuTensorMapEncodeTiled, looked up once through the runtime's entry-point

@@ -6,18 +6,25 @@ which runs on CPU tensors.
 to 0 (:func:`reset_launches`) and reads them afterwards to show that a path
 went through the kernels.  The four serving kernels count inside the CUDA
 implementation of their ``torch.library`` op (``library.py``), so a loaded
-``torch.export`` artifact counts too; the probes count in their wrappers.
-Importing this package registers those ops.
+``torch.export`` artifact counts too; the probes count in their wrappers,
+and ``ROUTES`` counts the probes' launches again by route (``tma`` or
+``simt``, ``probes.tma_refusal``).  Importing this package registers those
+ops.
 """
 
 LAUNCHES = {"fused_bottleneck": 0, "flash_attention": 0,
             "flash_attention_t": 0, "fused_sepconv": 0,
             "strided_gather": 0, "strided_gather_bf16": 0, "halo_add": 0}
+ROUTES = {name: {"tma": 0, "simt": 0}
+          for name in ("strided_gather", "strided_gather_bf16", "halo_add")}
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    for counts in ROUTES.values():
+        for route in counts:
+            counts[route] = 0
 
 
 from . import library  # noqa: E402,F401  (registers the bugcar ops)

@@ -150,6 +150,13 @@ def library() -> ctypes.CDLL:
         lib.bugcar_strided_gather.restype = _I
         lib.bugcar_halo_add.argtypes = [_P, _P] + [_I] * 4 + [_P]
         lib.bugcar_halo_add.restype = _I
+        lib.bugcar_strided_gather_tma.argtypes = [_P, _P] + [_I] * 6 + [
+            _P, _P]
+        lib.bugcar_strided_gather_tma.restype = _I
+        lib.bugcar_halo_add_tma.argtypes = [_P, _P] + [_I] * 4 + [_P, _P]
+        lib.bugcar_halo_add_tma.restype = _I
+        lib.bugcar_empty.argtypes = [_P]
+        lib.bugcar_empty.restype = _I
         lib.bugcar_cuda_error_string.argtypes = [_I]
         lib.bugcar_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

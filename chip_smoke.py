@@ -21,8 +21,10 @@ phase with its elapsed seconds:
    the plain version under the bf16 budget, where each output over it must
    be explained by a flipped ambiguous rounding (``rounds_apart``) and
    their count stays under a cap (``bottleneck_gate`` lines); timed with
-   CUDA events; each record carries its launch plan (kernel, CTAs,
-   threads, output pixels a CTA, the y1 tile a CTA projects).
+   CUDA events around bare launches (``ms``) and by CUDA-graph replay
+   (``graph_us``, see below); each record carries its launch plan
+   (kernel, CTAs, threads, output pixels a CTA, the y1 tile a CTA
+   projects).
 4. ``path``   — ``build_engine("enet_fused")`` with seeded weights (a
    Flax-layout numpy tree through the weight bridge) and ``Pipeline`` at
    ENet's full width (512x256, 15 classes) on synthetic 640x480 frames:
@@ -82,10 +84,21 @@ phase with its elapsed seconds:
    f32 ``enet_w16`` against a CPU run of the port.
 10. ``probe_kernels`` — ``scripts/torch_probe_strided.py``'s probes (the
    Mosaic probes of ``scripts/probe_mosaic.py``) run once through
-   ``strided_gather`` and ``halo_add`` with their launch counts read
-   around that run; then each kernel at the probes' (16, 64, 128) shapes
-   held bit-equal to its plain version and timed beside it, the PyTorch
-   call that computes the same function and its bytes bound.
+   ``strided_gather`` and ``halo_add`` with their launch counts and routes
+   read around that run (all nine on the TMA kernels); then each kernel at
+   the probes' (16, 64, 128) shapes held bit-equal to its plain version,
+   the SIMT kernel at the same shape too, and timed beside the plain
+   version, the PyTorch call that computes the same function and its
+   bytes bound: ``graph_us`` (TMA), ``graph_us_simt``, ``floor_us`` (an
+   empty kernel) and ``library_graph_us``, all by CUDA-graph replay.
+
+Every kernel record of phases 3, 5, 7 and 10 carries ``graph_us``: N
+launches captured in one ``torch.cuda.CUDAGraph`` (each marshalled on the
+capture stream), replayed between two events, over N; where a PyTorch
+call is timed beside it, ``library_graph_us`` too.  ``ms`` times bare
+launches issued one by one from Python, so for a launch shorter than the
+host's cost per call it is the host's issue rate.  A launch that cannot be
+captured gives ``null`` and ``<key>_error``.
 11. ``deeplab_path`` — ``build_engine("deeplab")`` and ``"deeplab_q"`` (the
    MobileNetV2 DeepLab at 1024x512, 15 classes, bf16, seeded weights;
    ``_q`` on the native grid) through ``Pipeline``: single, stream and
@@ -370,6 +383,8 @@ XC_F64 = {"loss_rel": 1e-9, "grad_of_leaf_max": 1e-6,
 XC_FAULT_SITE = "middle8.sep1.pointwise_bn"
 PROBE_LAUNCHES = {"strided_gather": 4, "strided_gather_bf16": 4,
                   "halo_add": 1}
+# CUDA-graph timing (graph_us): graph replays between the two events
+GRAPH_REPLAYS = 20
 PARALLEL_RANKS = 2         # processes of the parallel path on the one card
 
 _T0 = time.perf_counter()
@@ -400,6 +415,48 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def graph_us(fn, calls: int, replays: int = GRAPH_REPLAYS) -> float:
+    """Mean device microseconds of one fn() by CUDA-graph replay: ``calls``
+    calls captured in one ``torch.cuda.CUDAGraph``, the graph replayed
+    ``replays`` times between two events.  fn marshals its launch's
+    arguments when called, so that each carries the capture stream.  No
+    host time between launches: a launch shorter than the host's cost per
+    call is measured here and not by :func:`cuda_ms`."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    stop.synchronize()
+    return 1e3 * start.elapsed_time(stop) / (replays * calls)
+
+
+def graph_fields(key: str, fn, calls: int) -> dict:
+    """{key: graph_us(fn, calls)}, or {key: None, key + "_error": why}
+    when the launch cannot be captured."""
+    import torch
+    try:
+        return {key: graph_us(fn, calls)}
+    except Exception as e:  # noqa: BLE001  (the record says so)
+        torch.cuda.synchronize()
+        return {key: None, f"{key}_error": f"{type(e).__name__}: {e}"[:300]}
 
 
 def quartiles(values) -> dict:
@@ -694,6 +751,11 @@ def enet_phases(lib, smi: str, dev) -> dict:
                         # device time: bare launches, no Python checks
                         rec["ms"] = cuda_ms(
                             lambda: lib.bugcar_fused_bottleneck(*raw), 200)
+                        rec.update(graph_fields(
+                            "graph_us",
+                            lambda: lib.bugcar_fused_bottleneck(*launch_args(
+                                xi, out, *args, **kw, packed=blk.packed)[0]),
+                            50))
                         rec["wrapper_ms"] = cuda_ms(lambda: blk(xi), 50)
                         rec["plain_ms"] = cuda_ms(
                             lambda: fused_bottleneck_ref(xi, *args, **kw),
@@ -732,6 +794,16 @@ def enet_phases(lib, smi: str, dev) -> dict:
         for raw, _ in chain_args:
             lib.bugcar_fused_bottleneck(*raw)
 
+    def chain_marshalled():
+        # the same launches, marshalled on the current stream (a capture)
+        for i, blk in enumerate(blocks):
+            raw, _ = launch_args(
+                bufs[i % 2], bufs[(i + 1) % 2], blk.wp, blk.s1, blk.b1,
+                blk.a1, blk.wcore(), blk.s2, blk.b2, blk.a2, blk.we, blk.s3,
+                blk.b3, blk.ao, kind=blk.kind, dilation=blk.dilation,
+                packed=blk.packed)
+            lib.bugcar_fused_bottleneck(*raw)
+
     def chain_wrapper():
         y = x0
         for blk in blocks:
@@ -751,6 +823,8 @@ def enet_phases(lib, smi: str, dev) -> dict:
         trunk_ms = cuda_ms(chain_kernel, 100)
         trunk_wrapper_ms = cuda_ms(chain_wrapper, 50)
         trunk_plain_ms = cuda_ms(chain_plain, 20)
+        trunk_graph = graph_fields("trunk_16_launches_graph_us",
+                                   chain_marshalled, 10)
     bounds = [block_bound(1, x0.shape[1], x0.shape[2], b.kind, "bfloat16")
               for b in blocks]
     trunk_bound_ms = sum(b for b, _ in bounds)
@@ -763,7 +837,7 @@ def enet_phases(lib, smi: str, dev) -> dict:
          trunk_16_launches_ms=trunk_ms,
          trunk_through_wrapper_ms=trunk_wrapper_ms,
          trunk_plain_ms=trunk_plain_ms,
-         trunk_bound_ms=trunk_bound_ms,
+         trunk_bound_ms=trunk_bound_ms, **trunk_graph,
          plan_main={f"{b.kind}/d={b.dilation}": plan(
              1, x0.shape[1], x0.shape[2], b.kind, b.dilation)
              for b in blocks})
@@ -844,11 +918,16 @@ def enet_phases(lib, smi: str, dev) -> dict:
         # "ms" launches through the C launcher directly (device time),
         # the kernels phase line also has the time through the wrapper
         "ms": trunk_ms / len(blocks),
+        # the same chain by CUDA-graph replay (no host time between launches)
+        "graph_us": (None if trunk_graph["trunk_16_launches_graph_us"] is None
+                     else trunk_graph["trunk_16_launches_graph_us"]
+                     / len(blocks)),
         "plain_ms": trunk_plain_ms / len(blocks),
         "bound_ms": trunk_bound_ms / len(blocks),
         "bound_by": ("bytes" if by_bytes >= trunk_bound_ms / 2
                      else "operations"),
         "library_ms": None,
+        "library_graph_us": None,
     }
     assert len(main_recs) == len(blocks)
     return entry
@@ -903,21 +982,30 @@ def attention_phase(lib, clock_hz: float) -> dict:
                 iters = max(5, min(200, int(4e9 / (b * h * nq * nkv))))
                 # device time: bare launches, no Python checks
                 rec["ms"] = cuda_ms(lambda: kfn(*raw), iters)
+                calls = min(iters, 50)
+                rec.update(graph_fields(
+                    "graph_us", lambda: kfn(*att.launch_args(name, q, k, v,
+                                                             out)), calls))
                 rec["wrapper_ms"] = cuda_ms(lambda: fn(q, k, v), iters)
                 rec["plain_ms"] = cuda_ms(lambda: plain(q, k, v),
                                           max(3, iters // 4))
-                rec["library_ms"] = cuda_ms(
-                    lambda: F.scaled_dot_product_attention(
-                        q.transpose(-1, -2), k.transpose(-1, -2),
-                        v.transpose(-1, -2))
-                    if name == "flash_attention_t"
-                    else F.scaled_dot_product_attention(q, k, v), iters)
+                def sdpa():
+                    if name == "flash_attention_t":
+                        return F.scaled_dot_product_attention(
+                            q.transpose(-1, -2), k.transpose(-1, -2),
+                            v.transpose(-1, -2))
+                    return F.scaled_dot_product_attention(q, k, v)
+                rec["library_ms"] = cuda_ms(sdpa, iters)
+                rec.update(graph_fields("library_graph_us", sdpa, calls))
                 if name == "flash_attention_t":
                     # SDPA on token-major copies (made outside the timing):
                     # its fast layout, the fair yardstick
                     tm = [x.transpose(-1, -2).contiguous() for x in (q, k, v)]
                     rec["library_token_major_ms"] = cuda_ms(
                         lambda: F.scaled_dot_product_attention(*tm), iters)
+                    rec.update(graph_fields(
+                        "library_token_major_graph_us",
+                        lambda: F.scaled_dot_product_attention(*tm), calls))
                 rec.update(attention_bound(shape, dt, clock_hz))
                 plan = (ctypes.c_int * 5)()
                 lib.bugcar_flash_attention_plan(nq, d, 1, plan)
@@ -931,8 +1019,9 @@ def attention_phase(lib, clock_hz: float) -> dict:
     # B2 (d = 64), the kernel of each stage's layout: token-major for the
     # one head of stage 0, channel-major for stages 1-3
     b2 = [{k: records[name, shape][k] for k in (
-        "kernel", "shape", "ms", "plain_ms", "library_ms",
-        "library_token_major_ms", "bound_ms", "bound_by",
+        "kernel", "shape", "ms", "graph_us", "plain_ms", "library_ms",
+        "library_graph_us", "library_token_major_ms",
+        "library_token_major_graph_us", "bound_ms", "bound_by",
         "max_abs_err_float32", "max_abs_err_bfloat16")
         if k in records[name, shape]}
           for name, shape in zip(["flash_attention"]
@@ -1053,7 +1142,8 @@ def attention_entry(name: str, att: dict, launches: dict) -> dict:
     recs = [att["records"][name, s] for s in stages]
 
     def mean(key):
-        return sum(r[key] for r in recs) / len(recs)
+        vals = [r.get(key) for r in recs]
+        return None if None in vals else sum(vals) / len(vals)
 
     bound = mean("bound_ms")
     by_bytes = sum(r["bound_ms"] for r in recs if r["bound_by"] == "bytes")
@@ -1072,6 +1162,8 @@ def attention_entry(name: str, att: dict, launches: dict) -> dict:
         "bound_by": "bytes" if by_bytes >= bound * len(recs) / 2
                     else "operations",
         "library_ms": mean("library_ms"),
+        "graph_us": mean("graph_us"),
+        "library_graph_us": mean("library_graph_us"),
     }
 
 
@@ -1148,6 +1240,9 @@ def sepconv_phase(lib) -> dict:
             iters = 200 if h * w <= 64 * 128 else 50
             # device time: bare launches, no Python checks
             rec["ms"] = cuda_ms(lambda: lib.bugcar_fused_sepconv(*raw), iters)
+            rec.update(graph_fields(
+                "graph_us", lambda: lib.bugcar_fused_sepconv(
+                    *sc.launch_args(x, out, *kargs, **kw)), iters))
             rec["wrapper_ms"] = cuda_ms(
                 lambda: sc.fused_sepconv(x, *kargs, **kw), iters)
             rec["plain_ms"] = cuda_ms(
@@ -1164,6 +1259,9 @@ def sepconv_phase(lib) -> dict:
     on_path = [r for r in records.values() if r["launches_per_frame"]]
     per_frame = {k: sum(r[k] * r["launches_per_frame"] for r in on_path)
                  for k in ("ms", "plain_ms", "bound_ms")}
+    if all(r["graph_us"] is not None for r in on_path):
+        per_frame["graph_us"] = sum(r["graph_us"] * r["launches_per_frame"]
+                                    for r in on_path)
     emit("sepconv_kernels", seconds=round(time.perf_counter() - t, 3),
          tolerance={k: {"atol": v[0], "rtol": v[1]} for k, v in TOL.items()},
          max_abs_err=worst, launches_per_frame=SEP_PER_FRAME,
@@ -1299,6 +1397,8 @@ def sepconv_entry(sep: dict, launches: dict) -> dict:
         "bound_by": ("bytes" if by_bytes >= sep["per_frame"]["bound_ms"] / 2
                      else "operations"),
         "library_ms": None,
+        "graph_us": per.get("graph_us"),
+        "library_graph_us": None,
     }
 
 
@@ -1496,9 +1596,12 @@ def bench_phase(smi: str, dev) -> dict:
 
 
 def probe_phase(lib, dev) -> list:
-    """The probe script's run through the two kernels, then each kernel at
-    the probes' shapes against its plain version, timed; returns the
-    kernel line's three entries."""
+    """The probe script's run through the two kernels (every launch on the
+    TMA route), then each kernel at the probes' shapes against its plain
+    version, timed beside it: bare launches between events (``ms``) and
+    by CUDA-graph replay -- the TMA kernel, the SIMT kernel at the same
+    shape, the empty kernel (the launch floor) and the PyTorch call;
+    returns the kernel line's three entries."""
     import torch
 
     from bugcar_image_segmentation_tpu_torch.ops import cuda as kcuda
@@ -1513,6 +1616,7 @@ def probe_phase(lib, dev) -> list:
     results = script.run_probes(dev)
     torch.cuda.synchronize()
     launches = dict(kcuda.LAUNCHES)
+    routes = {k: dict(v) for k, v in kcuda.ROUTES.items()}
     wrong = [name for name, ok in results if not ok]
     if wrong:
         fail(f"torch_probe_strided: WRONG RESULT for {wrong}")
@@ -1520,6 +1624,14 @@ def probe_phase(lib, dev) -> list:
     if ({k: launches[k] for k in PROBE_LAUNCHES} != PROBE_LAUNCHES
             or any(extra.values())):
         fail(f"the probe run launched {launches}; expected {PROBE_LAUNCHES}")
+    if routes != {k: {"tma": n, "simt": 0}
+                  for k, n in PROBE_LAUNCHES.items()}:
+        fail(f"the probe run took the routes {routes}; every launch must "
+             f"take the TMA kernels")
+
+    def empty():
+        lib.bugcar_empty(torch.cuda.current_stream().cuda_stream)
+    floor_us = graph_us(empty, 1000)
 
     # (kernel, dtype, strides or None for the halo, launches per run)
     cases = [("strided_gather", torch.float32, (2, 1), 2),
@@ -1534,47 +1646,92 @@ def probe_phase(lib, dev) -> list:
         if strides is None:
             got, ref = probes.halo_add(x), probes.halo_add_reference(x)
             out = torch.empty_like(x)
-            raw = probes.halo_args(x, out)
-            bare = lib.bugcar_halo_add
+
+            def marshal(route, x=x, out=out):
+                return probes.halo_args(x, out, route)
 
             def library(x=x):
                 xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
                 return xp[:x.shape[0], :x.shape[1]] + xp[2:, 2:]
             wrapper = (lambda x=x: probes.halo_add(x))
             plain = (lambda x=x: probes.halo_add_reference(x))
+            plan = probes.halo_plan(x.shape, dtype)
             nbytes = 2 * x.numel() * x.element_size()
         else:
             sr, sw = strides
             got = probes.strided_gather(x, sr, sw)
             ref = probes.strided_gather_reference(x, sr, sw)
             out = torch.empty_like(ref)
-            raw = probes.gather_args(x, out, sr, sw)
-            bare = lib.bugcar_strided_gather
+
+            def marshal(route, x=x, out=out, sr=sr, sw=sw):
+                return probes.gather_args(x, out, sr, sw, route)
             library = (lambda x=x, sr=sr, sw=sw: x[::sr, ::sw].contiguous())
             wrapper = (lambda x=x, sr=sr, sw=sw:
                        probes.strided_gather(x, sr, sw))
             plain = (lambda x=x, sr=sr, sw=sw:
                      probes.strided_gather_reference(x, sr, sw))
+            plan = probes.tma_plan(x.shape, dtype, strides)
             # the selected elements read once, the output written once
             nbytes = 2 * ref.numel() * ref.element_size()
         torch.cuda.synchronize()
         if not torch.equal(got, ref):
             fail(f"{name} {strides} {dtype}: the kernel differs from its "
                  f"plain version")
+        if plan.route != "tma":
+            fail(f"{name} {strides} {dtype}: planned {plan.route} "
+                 f"({plan.reason})")
+        # the SIMT kernel at the same shape, named explicitly, same bits
+        simt_out = torch.full_like(ref, float("nan"))
+        _, sname, sargs = marshal("simt", out=simt_out)
+        err = getattr(lib, sname)(*sargs)
+        torch.cuda.synchronize()
+        if err or not torch.equal(simt_out, ref):
+            fail(f"{name} {strides} {dtype}: the SIMT kernel (error {err}) "
+                 f"differs from its plain version")
+
+        def bare(route, marshal=marshal):
+            # one launch, marshalled now: on the capture stream in a graph
+            _, fname, args = marshal(route)
+            getattr(lib, fname)(*args)
+        _, tname, traw = marshal("tma")
+        tfn = getattr(lib, tname)
+        _, sname, sraw = marshal("simt")
+        sfn = getattr(lib, sname)
+        # host µs of the wrapper's checks, plan and marshalling (TMA route);
+        # the tensor maps are encoded in the C launcher, inside "ms"
+        t0 = time.perf_counter()
+        for _ in range(1000):
+            marshal("tma")
+        marshal_us = 1e3 * (time.perf_counter() - t0)
         rec = {"kernel": name, "dtype": str(dtype).split(".")[-1],
                "strides": list(strides) if strides else None,
                "shape": list(x.shape), "launches_per_run": per_run,
+               "route": "tma", "plan": {"box": list(plan.store.box),
+                                        "load_box": list(plan.load.box),
+                                        "elem": list(plan.load.elem),
+                                        "tiles": list(plan.tiles),
+                                        "ctas": plan.grid},
                "max_abs_err": float((got.float() - ref.float()).abs().max()),
-               # device time: bare launches, no Python checks
-               "ms": cuda_ms(lambda raw=raw, bare=bare: bare(*raw), 1000),
+               # bare launches between two events: at these sizes the
+               # host's issue rate, not the kernel
+               "ms": cuda_ms(lambda traw=traw, tfn=tfn: tfn(*traw), 1000),
+               "ms_simt": cuda_ms(lambda sraw=sraw, sfn=sfn: sfn(*sraw),
+                                  1000),
+               "marshal_us": marshal_us,
                "wrapper_ms": cuda_ms(wrapper, 500),
                "plain_ms": cuda_ms(plain, 500),
                "library_ms": cuda_ms(library, 500),
+               "graph_us": graph_us(lambda bare=bare: bare("tma"), 200),
+               "graph_us_simt": graph_us(lambda bare=bare: bare("simt"),
+                                         200),
+               "floor_us": floor_us,
+               **graph_fields("library_graph_us", library, 200),
                "bound_ms": 1e3 * nbytes / MEM_RATE, "bound_by": "bytes"}
         recs.append(rec)
         print(json.dumps({"phase": "probe_case", **rec}), flush=True)
     emit("probe_kernels", seconds=round(time.perf_counter() - t, 3),
-         probes={name: ok for name, ok in results}, launches=launches)
+         probes={name: ok for name, ok in results}, launches=launches,
+         routes=routes, floor_us=floor_us)
 
     replaces = {"strided_gather": "scripts/probe_mosaic.py:30",
                 "strided_gather_bf16": "scripts/probe_mosaic.py:81",
@@ -1586,7 +1743,11 @@ def probe_phase(lib, dev) -> list:
 
         def mean(key, mine=mine, runs=runs):
             # per launch, weighted as the probe run launches each shape
-            return sum(r[key] * r["launches_per_run"] for r in mine) / runs
+            vals = [r[key] for r in mine]
+            if None in vals:
+                return None
+            return sum(v * r["launches_per_run"]
+                       for v, r in zip(vals, mine)) / runs
         entries.append({
             "name": name, "route": "cuda",
             "source": "bugcar_image_segmentation_tpu_torch/csrc/"
@@ -1595,7 +1756,10 @@ def probe_phase(lib, dev) -> list:
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": mean("ms"), "plain_ms": mean("plain_ms"),
             "bound_ms": mean("bound_ms"), "bound_by": "bytes",
-            "library_ms": mean("library_ms")})
+            "library_ms": mean("library_ms"),
+            "graph_us": mean("graph_us"),
+            "graph_us_simt": mean("graph_us_simt"), "floor_us": floor_us,
+            "library_graph_us": mean("library_graph_us")})
     return entries
 
 

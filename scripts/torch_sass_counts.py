@@ -10,9 +10,11 @@ kernel instance: its name and the count of each instruction class that
 says which units it uses -- HMMA (mma.sync on the tensor cores), HGMMA
 (wgmma), LDSM (ldmatrix), LDGSTS (cp.async), UTMALDG / UTMASTG (TMA loads
 / stores), FFMA (f32 FMA), MUFU (special-function unit: ex2 and others),
-STL / LDL (local memory: register spills).  A last line checks the bf16
-attention kernel (``flash_attention_wgmma``): every instance has HGMMA
-and UTMALDG and no HMMA.  Exits non-zero without cuobjdump or when that
+STL / LDL (local memory: register spills).  Two closing lines check the
+bf16 attention kernel (``flash_attention_wgmma``: every instance has HGMMA
+and UTMALDG and no HMMA) and the probes' TMA kernels
+(``strided_gather_tma``, ``halo_add_tma``: every instance has UTMALDG and
+UTMASTG and no STL or LDL).  Exits non-zero without cuobjdump or when a
 check fails.
 """
 
@@ -76,7 +78,14 @@ def main() -> int:
                             and o["HMMA"] == 0 for o in attn)
     print(json.dumps({"check": "flash_attention_wgmma", "instances": len(attn),
                       "hgmma_and_utmaldg_no_hmma": ok}), flush=True)
-    return 0 if ok else 1
+    tma = [ops for (name, ops) in found
+           if "strided_gather_tma" in name or "halo_add_tma" in name]
+    tma_ok = len(tma) == 3 and all(
+        o["UTMALDG"] > 0 and o["UTMASTG"] > 0 and o["STL"] == 0
+        and o["LDL"] == 0 for o in tma)
+    print(json.dumps({"check": "probe_tma", "instances": len(tma),
+                      "utmaldg_and_utmastg_no_stl_ldl": tma_ok}), flush=True)
+    return 0 if ok and tma_ok else 1
 
 
 def demangle(names):

@@ -835,21 +835,121 @@ PROBE_SHAPES = [(16, 64, 128), (5, 7, 3), (3, 5, 8), (17, 33, 20),
 @pytest.mark.parametrize("shape", PROBE_SHAPES,
                          ids=["x".join(map(str, s)) for s in PROBE_SHAPES])
 def test_probe_kernels_match_plain(dev, shape, dtype):
+    """Every gather stride and the halo add, bit for bit, each launch
+    counted once and by the route the rule gives: TMA where a pixel
+    (C * itemsize bytes) is a multiple of 16, the SIMT kernels elsewhere."""
     from bugcar_image_segmentation_tpu_torch.ops.cuda import probes
     x = torch.as_tensor(np.random.default_rng(3).standard_normal(shape)
                         .astype(np.float32), device=dev).to(dtype)
+    route = "tma" if shape[2] * x.element_size() % 16 == 0 else "simt"
     key = probes.launch_key(x)
     for sr, sw in probes.STRIDES:
+        assert probes.tma_plan(shape, dtype, (sr, sw)).route == route
         before = kcuda.LAUNCHES[key]
+        routed = kcuda.ROUTES[key][route]
         got = probes.strided_gather(x, sr, sw)
         torch.cuda.synchronize()
         assert kcuda.LAUNCHES[key] == before + 1
+        assert kcuda.ROUTES[key][route] == routed + 1
         assert torch.equal(got, probes.strided_gather_reference(x, sr, sw))
+    assert probes.halo_plan(shape, dtype).route == route
     before = kcuda.LAUNCHES["halo_add"]
+    routed = kcuda.ROUTES["halo_add"][route]
     got = probes.halo_add(x)
     torch.cuda.synchronize()
     assert kcuda.LAUNCHES["halo_add"] == before + 1
+    assert kcuda.ROUTES["halo_add"][route] == routed + 1
     assert torch.equal(got, probes.halo_add_reference(x))
+
+
+def _probe_launch(lib, x, out, strides, route):
+    """One bare launch through the named route, marshalled now (on the
+    current stream)."""
+    from bugcar_image_segmentation_tpu_torch.ops.cuda import build, probes
+    if strides is None:
+        _, name, args = probes.halo_args(x, out, route)
+    else:
+        _, name, args = probes.gather_args(x, out, *strides, route)
+    build.check(getattr(lib, name)(*args), f"{name} {tuple(x.shape)}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(16, 64, 128), (17, 33, 64), (3, 5, 8)],
+                         ids=["16x64x128", "17x33x64", "3x5x8"])
+def test_probe_routes_bit_equal(dev, shape, dtype):
+    """At TMA shapes the SIMT kernels, named explicitly, give the TMA
+    kernels' bits; an unaligned base takes the SIMT route by the rule."""
+    from bugcar_image_segmentation_tpu_torch.ops.cuda import build, probes
+    lib = build.library()
+    x = torch.as_tensor(np.random.default_rng(5).standard_normal(shape)
+                        .astype(np.float32), device=dev).to(dtype)
+    for strides in (*probes.STRIDES, None):
+        ref = (probes.halo_add_reference(x) if strides is None
+               else probes.strided_gather_reference(x, *strides))
+        outs = []
+        for route in ("tma", "simt"):
+            out = torch.full_like(ref, float("nan"))
+            _probe_launch(lib, x, out, strides, route)
+            outs.append(out)
+        torch.cuda.synchronize()
+        assert torch.equal(outs[0], ref) and torch.equal(outs[1], ref)
+    flat = torch.empty(x.numel() + 1, dtype=dtype, device=dev)
+    xu = flat[1:].view(shape)
+    xu.copy_(x)
+    assert xu.data_ptr() % 16 != 0
+    assert probes.tma_plan(shape, dtype, (2, 1), aligned=False).route == \
+        "simt"
+    key = probes.launch_key(x)
+    routed = dict(kcuda.ROUTES[key])
+    got = probes.strided_gather(xu, 2, 1)
+    torch.cuda.synchronize()
+    assert kcuda.ROUTES[key]["simt"] == routed["simt"] + 1
+    assert kcuda.ROUTES[key]["tma"] == routed["tma"]
+    assert torch.equal(got, probes.strided_gather_reference(x, 2, 1))
+    with pytest.raises(ValueError, match="TMA route cannot"):
+        probes.gather_args(xu, torch.empty_like(got), 2, 1, "tma")
+
+
+def test_probe_tma_kernels_in_a_cuda_graph(dev):
+    """The TMA launches captured in one CUDA graph (each marshalled on the
+    capture stream) and replayed on fresh input give the plain version's
+    bits."""
+    from bugcar_image_segmentation_tpu_torch.ops.cuda import build, probes
+    lib = build.library()
+    shape = (16, 64, 128)
+    rng = np.random.default_rng(9)
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.zeros(shape, dtype=dtype, device=dev)
+        for strides in (*probes.STRIDES, None):
+            ref_shape = (shape if strides is None else
+                         probes.gathered_shape(x, *strides))
+            assert (probes.halo_plan(shape, dtype) if strides is None else
+                    probes.tma_plan(shape, dtype, strides)).route == "tma"
+            cases.append((x, strides, torch.empty(ref_shape, dtype=dtype,
+                                                  device=dev)))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for x, strides, out in cases:          # warm, off the graph
+            _probe_launch(lib, x, out, strides, "tma")
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for x, strides, out in cases:
+            _probe_launch(lib, x, out, strides, "tma")
+    for _ in range(2):
+        for x, _, out in cases:
+            x.copy_(torch.as_tensor(rng.standard_normal(shape).astype(
+                np.float32)).to(x.dtype))
+            out.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        for x, strides, out in cases:
+            ref = (probes.halo_add_reference(x) if strides is None
+                   else probes.strided_gather_reference(x, *strides))
+            assert torch.equal(out, ref), (x.dtype, strides)
 
 
 @pytest.mark.parametrize("bad", ["noncontig", "half", "2d", "stride"])
