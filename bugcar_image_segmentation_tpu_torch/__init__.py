@@ -52,8 +52,8 @@ Layer map:
 
 ``deploy`` freezes an engine, a pipeline or the rig into a ``torch.export``
 artifact that loads without the model code; ``io`` holds the frame ring
-and the camera sources, ``utils.profiling`` the stage timers and the
-profiler trace.
+and the camera sources, ``utils.profiling`` the spans and counters the
+pipeline, engine and grid record and the profiler trace.
 
 Entry points run on the GPU (``device="cuda"``) unless the caller passes
 ``device="cpu"``; on the CPU every kernel wrapper runs its plain PyTorch

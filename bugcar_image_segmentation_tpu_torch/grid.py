@@ -27,6 +27,7 @@ import torch
 
 from .configs import CalibrationConfig, GridConfig
 from .ops import device_cache, morphology, polar, resize, warp
+from .utils.profiling import span
 
 
 class TemplateGeometry(NamedTuple):
@@ -151,6 +152,11 @@ class OccupancyGridBuilder:
         int8 grid(s) (cells_h, cells_w); in binary laserscan mode the pair
         (plain grid(s), ray-cast grid(s)), as the reference returns it
         (bev.py:164)."""
+        with span("grid.build"):
+            return self._build(segmap)
+
+    def _build(self, segmap: torch.Tensor
+               ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
         if tuple(segmap.shape[-2:]) != self.segmap_shape:
             raise ValueError(f"segmap shape {tuple(segmap.shape)} != "
                              f"expected {self.segmap_shape}")

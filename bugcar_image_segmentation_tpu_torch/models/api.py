@@ -59,6 +59,7 @@ from ..convert.flax_unet import random_unet_variables, unet_state_dict
 from ..convert.flax_xception import (random_xception_variables,
                                      xception_state_dict)
 from ..ops.resize import upsample_nearest_int
+from ..utils.profiling import count, span
 from . import preprocess as pre
 from . import remap
 from .deeplab import DeepLabV3
@@ -311,13 +312,18 @@ class Engine:
     def _shard_logits(self, frames: torch.Tensor) -> torch.Tensor:
         """The backbone's logits; under :attr:`spatial`, of this rank's
         rows of the preprocessed frames."""
-        x = pre.preprocess_for_config(frames, self.cfg)
+        with span("engine.preprocess"):
+            x = pre.preprocess_for_config(frames, self.cfg)
         if self.spatial is not None:
             x = self.spatial.take(x, 1)
         if not self.frame_by_frame or x.shape[0] == 1:
-            return self.forward_fn(x)
-        return torch.cat([self.forward_fn(x[i:i + 1])
-                          for i in range(x.shape[0])])
+            with span("engine.backbone"):
+                return self.forward_fn(x)
+        logits = []
+        for i in range(x.shape[0]):
+            with span("engine.backbone"):
+                logits.append(self.forward_fn(x[i:i + 1]))
+        return torch.cat(logits)
 
     def _whole(self, y: torch.Tensor) -> torch.Tensor:
         """Every rank's rows of ``y`` under :attr:`spatial`, else ``y``."""
@@ -331,12 +337,16 @@ class Engine:
         resolution, 1/label_scale of the input's."""
         if mode not in ("multiclass", "binary"):
             raise ValueError(f"unknown mode {mode!r}")
-        logits = self._shard_logits(frames)
-        if mode == "multiclass":
-            labels = remap.logits_to_drivability(logits, self.remap_table)
-        else:
-            labels = remap.logits_to_binary_road(logits)
-        return self._whole(labels)
+        with span("engine.segment_head"):
+            count("engine_frames", frames.shape[0])
+            logits = self._shard_logits(frames)
+            with span("engine.remap"):
+                if mode == "multiclass":
+                    labels = remap.logits_to_drivability(logits,
+                                                         self.remap_table)
+                else:
+                    labels = remap.logits_to_binary_road(logits)
+            return self._whole(labels)
 
     def to_input_res(self, labels: torch.Tensor) -> torch.Tensor:
         """Nearest-lift a head-resolution label map to the input

@@ -32,12 +32,19 @@ Two transports, as in the JAX package:
 the backbone as one batch, builds one grid per camera, each with its own
 calibration into the shared vehicle grid, and merges them by elementwise
 max (:func:`stitch_grids`).
+
+While recording is on (``utils/profiling.py``), a frame records the spans
+``pipeline.frame`` → ``pipeline.upload`` and ``pipeline.program`` (→ the
+engine's and the grid builder's spans), a stream ``pipeline.dispatch`` and
+``pipeline.drain``, with the counter ``grids_out`` (the grids a drain
+delivers) and, on the card, the ``device_backlog`` gauge: at each
+dispatch, the earlier dispatches the card has not finished.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Iterable, Iterator, List, Optional, Sequence, Tuple
+from typing import Iterable, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -49,6 +56,7 @@ from .models import remap
 from .models.api import Engine, frames_to_device
 from .ops import yuv
 from .ops.host_resize import resize_linear
+from .utils.profiling import active, count, gauge, span
 
 CHUNK = 4   # most frames one backbone batch runs
 
@@ -149,11 +157,12 @@ class Pipeline:
     def _upload(self, frames) -> torch.Tensor:
         """Camera frames ((K, H, W, 3), or a list of K) → the device
         program's input, in one host→device copy."""
-        if self.host_resize:
-            frames = np.stack([self._prep_host(f) for f in frames])
-        elif isinstance(frames, list):
-            frames = np.stack(frames)
-        return frames_to_device(frames, self.device)
+        with span("pipeline.upload"):
+            if self.host_resize:
+                frames = np.stack([self._prep_host(f) for f in frames])
+            elif isinstance(frames, list):
+                frames = np.stack(frames)
+            return frames_to_device(frames, self.device)
 
     # -- the device program --------------------------------------------------
 
@@ -166,31 +175,32 @@ class Pipeline:
         if frames.shape[0] > CHUNK:
             raise ValueError(f"a chunk holds at most {CHUNK} frames, got "
                              f"{frames.shape[0]}")
-        if self.transport == "i420":
-            # frame by frame, as the JAX program converts a chunk
-            frames = torch.stack([yuv.i420_to_bgr(f, self._model_hw)
-                                  for f in frames])
-        if self.use_clahe:
-            frames = postproc.clahe(frames)
-        heads = self.engine.segment_head(frames, self.mode)
-        segs = self.engine.to_input_res(heads)
-        if self.contour_filter:
-            road = (segs == remap.ROAD).to(torch.uint8)
-            kept = postproc.contour_noise_removal(road)
-            if self.mode == "multiclass":
-                segs = torch.where((road == 1) & (kept == 0),
-                                   torch.full_like(segs, remap.FLAT_NON_ROAD),
-                                   segs)
-            else:
-                segs = kept
-        src = heads if self.builder.label_scale > 1 else segs
-        grids = self.builder.build(src)
-        if isinstance(grids, tuple):
-            # binary + laserscan: (plain, ray-cast), stacked so that
-            # batches and streams carry one tensor (grid[..., 0, :, :]
-            # plain, grid[..., 1, :, :] ray-cast)
-            grids = torch.stack(grids, dim=-3)
-        return grids, segs
+        with span("pipeline.program"):
+            if self.transport == "i420":
+                # frame by frame, as the JAX program converts a chunk
+                frames = torch.stack([yuv.i420_to_bgr(f, self._model_hw)
+                                      for f in frames])
+            if self.use_clahe:
+                frames = postproc.clahe(frames)
+            heads = self.engine.segment_head(frames, self.mode)
+            segs = self.engine.to_input_res(heads)
+            if self.contour_filter:
+                road = (segs == remap.ROAD).to(torch.uint8)
+                kept = postproc.contour_noise_removal(road)
+                if self.mode == "multiclass":
+                    segs = torch.where(
+                        (road == 1) & (kept == 0),
+                        torch.full_like(segs, remap.FLAT_NON_ROAD), segs)
+                else:
+                    segs = kept
+            src = heads if self.builder.label_scale > 1 else segs
+            grids = self.builder.build(src)
+            if isinstance(grids, tuple):
+                # binary + laserscan: (plain, ray-cast), stacked so that
+                # batches and streams carry one tensor (grid[..., 0, :, :]
+                # plain, grid[..., 1, :, :] ray-cast)
+                grids = torch.stack(grids, dim=-3)
+            return grids, segs
 
     def _program_batch(self, frames: torch.Tensor) -> torch.Tensor:
         """Uploaded frames → grids, the backbone in chunks of ≤ 4."""
@@ -218,8 +228,9 @@ class Pipeline:
     def segment_and_grid(self, frame_bgr) -> Tuple[torch.Tensor,
                                                    torch.Tensor]:
         """(grid, segmentation map) of one frame, on the device."""
-        grids, segs = self._program(self._upload(frame_bgr[None]))
-        return grids[0], segs[0]
+        with span("pipeline.frame"):
+            grids, segs = self._program(self._upload(frame_bgr[None]))
+            return grids[0], segs[0]
 
     # -- streaming ------------------------------------------------------------
 
@@ -246,26 +257,52 @@ class Pipeline:
         if transfer_batch < 1:
             raise ValueError("transfer_batch must be >= 1")
         sync_chunk = min(depth, 8) if sync_chunk is None else sync_chunk
-        inflight: List[Tuple[torch.Tensor, int]] = []   # (K grids, valid)
+        # (K grids, valid, event): the event is recorded on the card after
+        # the dispatch's work while recording is on, else None
+        inflight: list = []
         pending: list = []
+        card = self.device.type == "cuda"
+
+        def backlog() -> Optional[int]:
+            """Earlier dispatches the card has not finished (they finish
+            in order); None while one of them carries no event."""
+            n = 0
+            for _, _, event in reversed(inflight):
+                if event is None:
+                    return None
+                if event.query():
+                    break
+                n += 1
+            return n
 
         def dispatch():
             if not pending:
                 return
-            n = len(pending)
-            if transfer_batch == 1:
-                inflight.append((self(pending[0])[None], 1))
-            else:
-                padded = pending + [pending[-1]] * (transfer_batch - n)
-                inflight.append((self._program_batch(self._upload(padded)),
-                                 n))
+            with span("pipeline.dispatch"):
+                event = None
+                if card and active():
+                    queued = backlog()
+                    if queued is not None:
+                        gauge("device_backlog", queued)
+                    event = torch.cuda.Event()
+                n = len(pending)
+                if transfer_batch == 1:
+                    grids = self(pending[0])[None]
+                else:
+                    padded = pending + [pending[-1]] * (transfer_batch - n)
+                    grids = self._program_batch(self._upload(padded))
+                if event is not None:
+                    event.record()
+                inflight.append((grids, n, event))
             pending.clear()
 
         def drain(k: int):
             chunk, inflight[:] = inflight[:k], inflight[k:]
-            fetched = torch.cat([g for g, _ in chunk]).cpu().numpy()
+            with span("pipeline.drain"):
+                fetched = torch.cat([g for g, _, _ in chunk]).cpu().numpy()
+                count("grids_out", sum(n for _, n, _ in chunk))
             off = 0
-            for g, n in chunk:
+            for g, n, _ in chunk:
                 yield from fetched[off:off + n]
                 off += g.shape[0]
 

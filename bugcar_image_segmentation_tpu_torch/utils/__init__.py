@@ -1,7 +1,7 @@
 """Host-side utilities: the Flax checkpoint reader and writer and
-train-state checkpoints (:mod:`~.checkpoint`), stage timers, the FPS meter
-and the profiler trace (:mod:`~.profiling`), the logger and the camera
-probe.
+train-state checkpoints (:mod:`~.checkpoint`), the span and counter
+recorder, the FPS meter and the profiler trace (:mod:`~.profiling`), the
+logger and the camera probe.
 
 The JAX package's ``utils/cache.py`` (XLA's persistent compile cache) has
 no counterpart here: the port's compiled artifacts are the hash-named
@@ -15,7 +15,7 @@ from __future__ import annotations
 import logging
 from typing import List
 
-from .profiling import FPSMeter, StageTimer, trace
+from .profiling import FPSMeter, trace
 
 
 def get_logger(name: str = "bugcar_torch") -> logging.Logger:
@@ -44,4 +44,4 @@ def probe_cameras(max_index: int = 10) -> List[int]:
     return available
 
 
-__all__ = ["FPSMeter", "StageTimer", "trace", "get_logger", "probe_cameras"]
+__all__ = ["FPSMeter", "trace", "get_logger", "probe_cameras"]

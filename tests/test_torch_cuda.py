@@ -6,9 +6,10 @@ frame's result alone equals its result in a batch, every engine family),
 the camera rig, bench.py's path (``enet_w16``, host resize, i420) on
 the card, the int8 product (``torch._int_mm``, exact against the int32
 plain version, small M padded), the torch backend of the temporal
-fusion on the card, training: bf16 ENet and SegFormer steps (the
-latter through the plain attention), one f32 ENet step against the same
-step on the CPU, and the data-parallel step on one NCCL rank; and the
+fusion on the card, the stream's device backlog gauge, training: bf16
+ENet and SegFormer steps (the latter through the plain attention), one
+f32 ENet step against the same step on the CPU, and the data-parallel
+step on one NCCL rank; and the
 serving kernels as ``torch.library`` ops (each op's CUDA implementation
 against its plain version, an exported artifact's launches counted, a
 failed build raising with no fallback).
@@ -787,6 +788,31 @@ def test_rig_stitch_is_the_per_camera_max_on_card(dev):
             frames[i]).cpu().numpy() for i, c in enumerate(cals)])
         np.testing.assert_array_equal(rig(frames).cpu().numpy(),
                                       per_cam.max(0))
+
+
+def test_stream_device_backlog_on_card(dev):
+    """``Pipeline.stream`` recording on the card samples the
+    ``device_backlog`` gauge at every dispatch: between 0 and the
+    dispatches in flight; the counters match the grids yielded."""
+    import bugcar_image_segmentation_tpu_torch as port
+    from bugcar_image_segmentation_tpu_torch.calibration import \
+        toy_calibration
+    from bugcar_image_segmentation_tpu_torch.utils.profiling import (
+        RECORDER, recording)
+    eng = port.build_engine("enet", port.ModelConfig(
+        input_width=512, input_height=256), device="cuda", seed=1)
+    pipe = port.Pipeline(eng, toy_calibration((256, 512)),
+                         port.GridConfig(8.0, 8.0, 0.1))
+    frames = [np.random.default_rng(i).integers(0, 256, (480, 640, 3),
+                                                np.uint8) for i in range(4)]
+    list(pipe.stream(iter(frames), depth=4, sync_chunk=2))
+    with recording():
+        out = list(pipe.stream((frames[i % 4] for i in range(48)), depth=4,
+                               sync_chunk=2, transfer_batch=2))
+    total, samples = RECORDER.gauges["device_backlog"]
+    assert samples == 24 and 0 <= total / samples <= 4 + 2
+    assert RECORDER.counters["grids_out"] == len(out) == 48
+    assert RECORDER.counters["engine_frames"] == 48
 
 
 def test_xception_engine_on_card_matches_plain(dev):

@@ -1,8 +1,8 @@
 """The port's frame IO (``io/``) against the JAX package's: the native
 frame ring (the port's byte-identical copy of ``frame_ring.cpp``, built
 into ``build/native/``), the synthetic source, the capture thread, the
-stall watchdog and the drop counter; and ``utils.profiling`` (the stage
-timer against the JAX package's, the profiler's Chrome trace).
+stall watchdog and the drop counter; and ``utils.profiling`` (the FPS
+meter, the profiler's Chrome trace).
 
 Each ring case of ``tests/test_io_training.py`` runs on both rings with the
 same push / pop sequence and must give the same frames, sequence numbers
@@ -214,20 +214,10 @@ def test_drop_counter_equals_jax(drops):
         assert abs(ours.drop_rate - 3 / 5) < 1e-9
 
 
-def test_stage_timer_and_fps_meter_equal_jax():
-    """``utils.profiling``'s timers summarise recorded samples as the JAX
-    package's do."""
-    from bugcar_image_segmentation_tpu.utils import profiling as jprof
+def test_fps_meter_rates_its_window():
+    """``utils.profiling.FPSMeter`` gives the tick rate over its window
+    (the span recorder is held in tests/test_torch_tracing.py)."""
     from bugcar_image_segmentation_tpu_torch.utils import profiling as tprof
-    samples = np.random.default_rng(0).uniform(1e-3, 2e-2, 200)
-    ours, theirs = tprof.StageTimer(window=128), jprof.StageTimer(window=128)
-    for v in samples:
-        ours.record("grid", float(v))
-        theirs.record("grid", float(v))
-    with ours.stage("upload"):
-        pass
-    got, want = ours.summary(), theirs.summary()
-    assert got["grid"] == want["grid"] and got["upload"]["n"] == 1
     meter = tprof.FPSMeter(window=4)
     assert meter.fps == 0.0
     for _ in range(6):
