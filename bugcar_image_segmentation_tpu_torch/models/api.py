@@ -58,6 +58,8 @@ from ..convert.flax_segformer import (random_segformer_variables,
 from ..convert.flax_unet import random_unet_variables, unet_state_dict
 from ..convert.flax_xception import (random_xception_variables,
                                      xception_state_dict)
+from ..ops import cuda as kcuda
+from ..ops import held_cache
 from ..ops.resize import upsample_nearest_int
 from ..utils.profiling import count, span
 from . import preprocess as pre
@@ -134,6 +136,59 @@ def frames_to_device(frames_bgr, device: torch.device) -> torch.Tensor:
     return t.to(device, non_blocking=True)
 
 
+def replays(engine, device: torch.device) -> bool:
+    """Whether a call of ``engine.segment_head`` on ``device`` replays a
+    CUDA graph; the rule reads only what the call can observe.  Eager:
+    off a CUDA device, on a sharded engine (its collectives and placed
+    weights), and while ``torch.export`` or ``torch.compile`` traces."""
+    return (device.type == "cuda" and engine.spatial is None
+            and engine.placer is None
+            and not torch.compiler.is_exporting()
+            and not torch.compiler.is_compiling())
+
+
+def graph_key(engine, frames: torch.Tensor, mode: str) -> tuple:
+    """What picks a captured program: the frames' shape, dtype and
+    device, the mode, and the module state that chooses routes at forward
+    time (``training``, SegFormer's ``xla_attention``)."""
+    module = engine.module
+    return (tuple(frames.shape), frames.dtype, frames.device, mode,
+            module.training, getattr(module, "xla_attention", None))
+
+
+class FrameGraph:
+    """One key's device program, captured in a ``torch.cuda.CUDAGraph``
+    from ``program`` (frames → labels) on a static input that each call
+    fills.
+
+    The capture runs ``program`` once on ``frames`` (its kernels, handles
+    and cached constants are warm from an eager call of the key) and the
+    graph is replayed for them.  It holds what the capture read from the
+    device caches (:func:`~..ops.held_cache`) and the launch counts the
+    capture added, which each later replay adds again.  A call returns a
+    copy of the static output: the caller's tensor is its own."""
+
+    def __init__(self, program: Callable, frames: torch.Tensor):
+        self.frames = torch.empty_like(
+            frames, memory_format=torch.contiguous_format)
+        self.frames.copy_(frames)
+        self.graph = torch.cuda.CUDAGraph()
+        before = kcuda.launch_counts()
+        with held_cache() as self.held, torch.cuda.device(frames.device), \
+                torch.cuda.graph(self.graph):
+            self.labels = program(self.frames)
+        self.launches = {k: n - before[k]
+                         for k, n in kcuda.launch_counts().items()
+                         if n != before[k]}
+        self.graph.replay()
+
+    def __call__(self, frames: torch.Tensor) -> torch.Tensor:
+        self.frames.copy_(frames)
+        self.graph.replay()
+        kcuda.add_launches(self.launches)
+        return self.labels.clone()
+
+
 class Engine:
     """A segmentation backbone behind a frame → class-map API.
 
@@ -164,6 +219,10 @@ class Engine:
     ``parallel/spatial.py``): each frame's rows are split over ranks; the
     backbone runs on this rank's rows, and :meth:`forward` and
     :meth:`segment_head` return the whole frame's, gathered.
+
+    ``graphs``: :meth:`segment_head`'s captured programs by
+    :func:`graph_key` (None for a key called once, eagerly);
+    :meth:`load_variables` drops them, and a copy of the engine has none.
     """
 
     placer: Optional[Callable] = None
@@ -215,9 +274,16 @@ class Engine:
         """Swap in weights: a Flax-layout tree, a port state dict, or None
         (random from the engine's seed); ``_w16`` rounds them to bf16;
         the engine's ``placer`` places them."""
+        self.graphs: Dict[tuple, Optional[FrameGraph]] = {}
         self._load(variables)
         if self.placer is not None:
             self.placer(self)
+
+    def __getstate__(self) -> dict:
+        """A copy (``copy.deepcopy``, as ``deploy.py`` freezes an engine)
+        starts with no graphs: the captured ones read this engine's
+        tensors."""
+        return {**self.__dict__, "graphs": {}}
 
     def _load(self, variables: Optional[Mapping]) -> None:
         quarter = "quarter" if self.label_scale == 4 else "full"
@@ -334,19 +400,52 @@ class Engine:
                      ) -> torch.Tensor:
         """(N, H, W, 3) uint8 on the device → (N, h, w) uint8 class maps
         (3-class drivability, or the binary road mask) at the head's
-        resolution, 1/label_scale of the input's."""
+        resolution, 1/label_scale of the input's.
+
+        Where :func:`replays` says so, the program replays from a CUDA
+        graph: a key's first call
+        (:func:`graph_key`) runs eagerly, its second captures, and every
+        call from the second on replays, with the kernels eager chose at
+        that shape, so the labels are eager's bit for bit.  The child
+        spans (``engine.preprocess|backbone|remap``) record on the eager
+        path only; ``engine_graph_frames`` counts the frames a replay
+        served."""
         if mode not in ("multiclass", "binary"):
             raise ValueError(f"unknown mode {mode!r}")
         with span("engine.segment_head"):
             count("engine_frames", frames.shape[0])
-            logits = self._shard_logits(frames)
-            with span("engine.remap"):
-                if mode == "multiclass":
-                    labels = remap.logits_to_drivability(logits,
-                                                         self.remap_table)
-                else:
-                    labels = remap.logits_to_binary_road(logits)
-            return self._whole(labels)
+            if replays(self, frames.device):
+                labels = self._replay(frames, mode)
+                if labels is not None:
+                    count("engine_graph_frames", frames.shape[0])
+                    return labels
+            return self._head(frames, mode)
+
+    def _replay(self, frames: torch.Tensor, mode: str
+                ) -> Optional[torch.Tensor]:
+        """The labels from the key's graph, captured on this call if the
+        key ran once before; None on the key's first call."""
+        key = graph_key(self, frames, mode)
+        graph = self.graphs.get(key)
+        if graph is not None:
+            return graph(frames)
+        if key not in self.graphs:
+            self.graphs[key] = None
+            return None
+        graph = self.graphs[key] = FrameGraph(
+            lambda x: self._head(x, mode), frames)
+        return graph.labels.clone()
+
+    def _head(self, frames: torch.Tensor, mode: str) -> torch.Tensor:
+        """The device program of :meth:`segment_head`, eagerly."""
+        logits = self._shard_logits(frames)
+        with span("engine.remap"):
+            if mode == "multiclass":
+                labels = remap.logits_to_drivability(logits,
+                                                     self.remap_table)
+            else:
+                labels = remap.logits_to_binary_road(logits)
+        return self._whole(labels)
 
     def to_input_res(self, labels: torch.Tensor) -> torch.Tensor:
         """Nearest-lift a head-resolution label map to the input
@@ -415,5 +514,6 @@ def build_engine(name: str = "enet",
     return Engine(name, cfg, variables=variables, device=device, seed=seed)
 
 
-__all__ = ["Engine", "build_engine", "frames_to_device", "segformer_variant",
+__all__ = ["Engine", "FrameGraph", "build_engine", "frames_to_device",
+           "graph_key", "replays", "segformer_variant",
            "xception_variant", "EXECUTORS", "DEEPLAB", "UNETS"]

@@ -8,8 +8,9 @@ went through the kernels.  The four serving kernels count inside the CUDA
 implementation of their ``torch.library`` op (``library.py``), so a loaded
 ``torch.export`` artifact counts too; the probes count in their wrappers,
 and ``ROUTES`` counts the probes' launches again by route (``tma`` or
-``simt``, ``probes.tma_refusal``).  Importing this package registers those
-ops.
+``simt``, ``probes.tma_refusal``).  A CUDA graph's replay adds the counts
+its capture made (:func:`add_launches`), since its kernels run again.
+Importing this package registers those ops.
 """
 
 LAUNCHES = {"fused_bottleneck": 0, "flash_attention": 0,
@@ -25,6 +26,25 @@ def reset_launches() -> None:
     for counts in ROUTES.values():
         for route in counts:
             counts[route] = 0
+
+
+def launch_counts() -> dict:
+    """``LAUNCHES`` and ``ROUTES`` now, flat: {(kernel,): n, (kernel,
+    route): n}."""
+    flat = {(name,): n for name, n in LAUNCHES.items()}
+    flat.update({(name, route): n for name, counts in ROUTES.items()
+                 for route, n in counts.items()})
+    return flat
+
+
+def add_launches(delta: dict) -> None:
+    """Add ``delta`` (keyed as :func:`launch_counts`) to the counts: a
+    CUDA graph's replay launches again what its capture counted."""
+    for key, n in delta.items():
+        if len(key) == 1:
+            LAUNCHES[key[0]] += n
+        else:
+            ROUTES[key[0]][key[1]] += n
 
 
 from . import library  # noqa: E402,F401  (registers the bugcar ops)

@@ -1317,3 +1317,170 @@ def test_failed_build_raises_without_fallback(dev, name, monkeypatch):
     with pytest.raises(RuntimeError, match="broken build"):
         op(*args)
     assert kcuda.LAUNCHES[key] == before
+
+
+# -- the engine's CUDA-graph replay -----------------------------------------
+#
+# Engine.segment_head's first call of a key runs eagerly, its second
+# captures the program and replays it, later calls replay.  The yardstick
+# is the same engine's eager program (``_head``), or an engine whose every
+# call runs eagerly (``replays`` patched to say no), on the same frames.
+
+GRAPH_HW = (256, 512)
+GRAPH_CASES = [("segformer_b0", 1, "multiclass"),
+               ("segformer_b0", 4, "multiclass"),
+               ("segformer_b0", 1, "binary"),
+               ("segformer_b0", 4, "binary"),
+               ("enet_fused_w16", 4, "multiclass"),
+               ("xception_fs", 2, "multiclass"),
+               ("enet", 2, "multiclass"),
+               ("segformer_b1_int8", 2, "multiclass"),
+               ("segformer_b2_hc_q", 2, "multiclass"),
+               ("segformer_b3", 1, "multiclass"),
+               ("deeplab_xception_q", 2, "binary"),
+               ("deeplab", 2, "multiclass"),
+               ("deeplab_q", 2, "multiclass"),
+               ("unet", 2, "multiclass"),
+               ("unet_ph", 2, "binary")]
+
+
+def _graph_engine(name, seed=0, hw=GRAPH_HW):
+    import bugcar_image_segmentation_tpu_torch as port
+    cfg = port.ModelConfig(name=name, input_width=hw[1], input_height=hw[0])
+    return port.build_engine(name, cfg, device="cuda", seed=seed)
+
+
+def _camera_frames(n, seed, shape=(480, 640)):
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(rng.integers(0, 256, (n,) + shape + (3,),
+                                        np.uint8), device="cuda")
+
+
+def _captured(eng):
+    return [g for g in eng.graphs.values() if g is not None]
+
+
+@pytest.mark.parametrize("name,n,mode", GRAPH_CASES,
+                         ids=[f"{a}-{n}-{m}" for a, n, m in GRAPH_CASES])
+def test_engine_graph_replay_equals_eager(dev, name, n, mode):
+    """bf16 on the card: each call of segment_head (eager, capture, two
+    replays) equals the eager program on its frames bit for bit; every
+    call returns a tensor of its own that later replays leave alone; a
+    replay counts the launches eager counts, and its frames in
+    ``engine_graph_frames``."""
+    from bugcar_image_segmentation_tpu_torch.utils.profiling import (
+        RECORDER, recording)
+    eng = _graph_engine(name)
+    frames = [_camera_frames(n, seed) for seed in range(4)]
+    out = [eng.segment_head(x, mode) for x in frames[:3]]
+    assert len(eng.graphs) == 1 and len(_captured(eng)) == 1
+    kept = [o.clone() for o in out]
+    kcuda.reset_launches()
+    with recording():
+        last = eng.segment_head(frames[3], mode)
+    replayed = kcuda.launch_counts()
+    assert RECORDER.counters == {"engine_frames": n,
+                                 "engine_graph_frames": n}
+    kcuda.reset_launches()
+    with torch.no_grad():
+        eager = [eng._head(x, mode) for x in frames]
+    assert kcuda.launch_counts() == {
+        k: 4 * c for k, c in replayed.items()}
+    if name.startswith(("segformer", "enet_fused", "xception")):
+        assert any(replayed.values()), name
+    for got, want in zip(out + [last], eager):
+        assert torch.equal(got, want)
+    assert all(torch.equal(o, k) for o, k in zip(out, kept))
+    ptrs = {t.data_ptr() for t in out + [last]}
+    assert len(ptrs) == 4
+
+
+def test_engine_graph_pipeline_at_the_benchmark_size(dev, monkeypatch):
+    """SegFormer-B0 bf16 at 1024x2048 from 1080p frames, as the
+    benchmark serves it: the live calls' grids and a stream's (4 frames a
+    copy, 4 dispatches ahead) equal those of an engine that runs eagerly,
+    and the replays served every frame after each key's first call."""
+    import bugcar_image_segmentation_tpu_torch as port
+    from bugcar_image_segmentation_tpu_torch.calibration import \
+        toy_calibration
+    from bugcar_image_segmentation_tpu_torch.models import api
+    hw = (1024, 2048)
+    frames = [_camera_frames(1, s, (1080, 1920))[0].cpu().numpy()
+              for s in range(3)]
+    video = [frames[i % 3] for i in range(24)]
+
+    def serve():
+        pipe = port.Pipeline(_graph_engine("segformer_b0", hw=hw),
+                             toy_calibration(hw),
+                             port.GridConfig(8.0, 8.0, 0.1))
+        live = np.stack([pipe(frames[i]).cpu().numpy()
+                         for i in [0, 1, 2, 0, 1, 2]])
+        stream = np.stack(list(pipe.stream(iter(video), depth=4,
+                                           sync_chunk=2, transfer_batch=4)))
+        return live, stream, pipe.engine
+
+    live, stream, eng = serve()
+    assert len(_captured(eng)) == 2
+    monkeypatch.setattr(api, "replays", lambda engine, device: False)
+    live_eager, stream_eager, eng_eager = serve()
+    assert eng_eager.graphs == {}
+    np.testing.assert_array_equal(live, live_eager)
+    np.testing.assert_array_equal(stream, stream_eager)
+    np.testing.assert_array_equal(stream[:3], live_eager[:3])
+
+
+def test_engine_graph_dropped_with_new_weights(dev):
+    """load_variables drops every graph: the new weights' labels are the
+    eager program's with those weights, not the old graph's."""
+    eng = _graph_engine("segformer_b0")
+    x = _camera_frames(2, 0)
+    old = [eng.segment_head(x) for _ in range(3)][-1]
+    assert _captured(eng)
+    eng.seed = 1
+    eng.load_variables(None)
+    assert eng.graphs == {}
+    new = [eng.segment_head(x) for _ in range(3)]
+    with torch.no_grad():
+        want = eng._head(x, "multiclass")
+    assert all(torch.equal(t, want) for t in new)
+    assert not torch.equal(new[-1], old)
+    assert len(_captured(eng)) == 1
+
+
+def test_engine_graph_xla_attention_is_a_key_of_its_own(dev):
+    """Switching SegFormer to the plain attention captures a new program,
+    which launches no attention kernel and equals eager under the same
+    switch; switching back replays the first graph."""
+    eng = _graph_engine("segformer_b0")
+    x = _camera_frames(1, 0)
+    kernel = [eng.segment_head(x) for _ in range(3)][-1]
+    eng.module.xla_attention = True
+    plain = [eng.segment_head(x) for _ in range(2)]
+    assert len(eng.graphs) == 2 and len(_captured(eng)) == 2
+    kcuda.reset_launches()
+    again = eng.segment_head(x)
+    assert not any(kcuda.LAUNCHES.values())
+    with torch.no_grad():
+        want = eng._head(x, "multiclass")
+    assert all(torch.equal(t, want) for t in plain + [again])
+    eng.module.xla_attention = False
+    kcuda.reset_launches()
+    assert torch.equal(eng.segment_head(x), kernel)
+    assert kcuda.LAUNCHES["flash_attention"] == 2
+    assert len(eng.graphs) == 2
+
+
+def test_engine_graph_export_after_replays(dev, tmp_path):
+    """An engine that has captured and replayed its program exports (the
+    export copies the engine, which leaves its graphs behind), keeps its
+    graphs, and the artifact gives the replay's labels bit for bit."""
+    from bugcar_image_segmentation_tpu_torch import deploy
+    eng = _graph_engine("enet_fused", hw=(64, 128))
+    x = _camera_frames(3, 0, (64, 128)).cpu().numpy()
+    got = [eng.predict(x) for _ in range(3)]
+    assert len(_captured(eng)) == 1
+    path = str(tmp_path / "enet.bcseg")
+    deploy.export_engine_to(path, eng)
+    assert len(_captured(eng)) == 1
+    assert torch.equal(deploy.load_artifact(path)(x), got[-1])
+    assert torch.equal(eng.predict(x), got[-1])
