@@ -10,8 +10,13 @@ implementation of their ``torch.library`` op (``library.py``), so a loaded
 and ``ROUTES`` counts the probes' launches again by route (``tma`` or
 ``simt``, ``probes.tma_refusal``).  A CUDA graph's replay adds the counts
 its capture made (:func:`add_launches`), since its kernels run again.
-Importing this package registers those ops.
+Every rise of a kernel's count goes through :func:`counted`, which also
+adds it to the span recorder's counter ``launches.<kernel>`` while the
+recorder records (``utils/profiling.py``): the count of a traced window,
+replays included.  Importing this package registers those ops.
 """
+
+from ...utils.profiling import count
 
 LAUNCHES = {"fused_bottleneck": 0, "flash_attention": 0,
             "flash_attention_t": 0, "fused_sepconv": 0,
@@ -37,12 +42,19 @@ def launch_counts() -> dict:
     return flat
 
 
+def counted(kernel: str, n: int = 1) -> None:
+    """Count ``n`` launches of ``kernel``: in ``LAUNCHES`` and, while
+    recording, in the counter ``launches.<kernel>``."""
+    LAUNCHES[kernel] += n
+    count("launches." + kernel, n)
+
+
 def add_launches(delta: dict) -> None:
     """Add ``delta`` (keyed as :func:`launch_counts`) to the counts: a
     CUDA graph's replay launches again what its capture counted."""
     for key, n in delta.items():
         if len(key) == 1:
-            LAUNCHES[key[0]] += n
+            counted(key[0], n)
         else:
             ROUTES[key[0]][key[1]] += n
 

@@ -31,7 +31,7 @@ from typing import Tuple
 
 import torch
 
-from . import LAUNCHES
+from . import counted
 from . import build as _build
 from . import library as _library
 
@@ -135,7 +135,7 @@ def launch(name: str, q: torch.Tensor, k: torch.Tensor,
         err = getattr(_build.library(), f"bugcar_{name}")(*args)
     _build.check(err, f"{name} launch (q {tuple(q.shape)}, "
                       f"k {tuple(k.shape)}, {q.dtype})")
-    LAUNCHES[name] += 1
+    counted(name)
     return out
 
 

@@ -33,7 +33,7 @@ from typing import (List, Mapping, NamedTuple, Optional, Sequence, Tuple,
 import torch
 import torch.nn.functional as F
 
-from . import LAUNCHES
+from . import counted
 from . import build as _build
 from . import library as _library
 
@@ -513,7 +513,7 @@ def launch(x: torch.Tensor, wp: torch.Tensor, s1: torch.Tensor,
             int(x.dtype == torch.bfloat16))
         _build.check(err, f"fused_bottleneck launch (x {tuple(x.shape)}, "
                           f"{smem} B of shared memory per block)")
-    LAUNCHES["fused_bottleneck"] += 1
+    counted("fused_bottleneck")
     return out
 
 

@@ -37,7 +37,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from . import LAUNCHES, ROUTES
+from . import ROUTES, counted
 from . import build as _build
 
 STRIDES = ((2, 1), (1, 2), (2, 2))
@@ -256,7 +256,7 @@ def _launch(key: str, marshalled: Tuple[str, str, tuple], what: str
             ) -> None:
     route, name, args = marshalled
     _build.check(getattr(_build.library(), name)(*args), what)
-    LAUNCHES[key] += 1
+    counted(key)
     ROUTES[key][route] += 1
 
 

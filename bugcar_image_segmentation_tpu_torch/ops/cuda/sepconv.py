@@ -36,7 +36,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from . import LAUNCHES
+from . import counted
 from . import build as _build
 from . import library as _library
 from .bottleneck import fold_bn
@@ -290,7 +290,7 @@ def launch(x: torch.Tensor, wdw: torch.Tensor, s1: torch.Tensor,
         err = _build.library().bugcar_fused_sepconv(*args)
     _build.check(err, f"fused_sepconv launch (x {tuple(x.shape)}, F "
                       f"{wpw.shape[-1]}, stride {strides}, {x.dtype})")
-    LAUNCHES["fused_sepconv"] += 1
+    counted("fused_sepconv")
     return out
 
 

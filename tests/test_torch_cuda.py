@@ -1366,7 +1366,8 @@ def test_engine_graph_replay_equals_eager(dev, name, n, mode):
     """bf16 on the card: each call of segment_head (eager, capture, two
     replays) equals the eager program on its frames bit for bit; every
     call returns a tensor of its own that later replays leave alone; a
-    replay counts the launches eager counts, and its frames in
+    replay counts the launches eager counts, in ``LAUNCHES`` and in the
+    recorder's ``launches.<kernel>``, and its frames in
     ``engine_graph_frames``."""
     from bugcar_image_segmentation_tpu_torch.utils.profiling import (
         RECORDER, recording)
@@ -1379,8 +1380,11 @@ def test_engine_graph_replay_equals_eager(dev, name, n, mode):
     with recording():
         last = eng.segment_head(frames[3], mode)
     replayed = kcuda.launch_counts()
-    assert RECORDER.counters == {"engine_frames": n,
-                                 "engine_graph_frames": n}
+    # the replay's kernel launches reach the recorder as launches.<kernel>
+    assert RECORDER.counters == {
+        "engine_frames": n, "engine_graph_frames": n,
+        **{f"launches.{k[0]}": c for k, c in replayed.items()
+           if len(k) == 1 and c}}
     kcuda.reset_launches()
     with torch.no_grad():
         eager = [eng._head(x, mode) for x in frames]
